@@ -1,0 +1,238 @@
+"""d-bit address algebra for the binary tree routing protocol (paper §2).
+
+The PyTorch counterpart of `repro.core.addressing`. A tree *position* is an
+address of the form ``p 1 0^k`` (prefix ``p``, a set bit, ``k`` trailing
+zeros); the root is the all-zero address:
+
+    CW [p 1 0^k] = p 1 1 0^(k-1)        (clockwise descendant)
+    CCW[p 1 0^k] = p 0 1 0^(k-1)        (counterclockwise descendant)
+    UP [p 1 1 0^j] = p 1 0^(j+1)        (it is a CW child)
+    UP [p 0 1 0^j] = p 1 0^(j+1)        (it is a CCW child)
+    CW [0^d]      = 1 0^(d-1)           (root's single descendant)
+
+Every function accepts either
+
+  * torch ``int64`` tensors holding d-bit addresses (d <= 32). CPU torch
+    has no uint32 arithmetic, so an address lives in the low 32 bits of an
+    int64 and every result that can wrap is masked back to ``2^d - 1`` —
+    the values are those of the reference's wrapping uint32 arithmetic;
+  * numpy unsigned integers (uint64 for d <= 64, uint32 for d <= 32), the
+    host path `Ring` uses.
+
+Conventions match the reference: ``mask = 2^d - 1``; ``UP(0) = 0``; the
+subtree of x spans ``(x - 2^k, x + 2^k - 1]`` with ``2^k = lowbit(x)``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+Array = Any  # torch.Tensor | np.ndarray | numpy scalar
+
+UP, CW, CCW = 0, 1, 2  # direction codes
+
+
+def _wrapok(fn):
+    """Run under np.errstate(over='ignore'): modular wrap is intentional."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        with np.errstate(over="ignore"):
+            return fn(*args, **kwargs)
+
+    return inner
+
+
+def _is_torch(a: Array) -> bool:
+    return isinstance(a, torch.Tensor)
+
+
+def _arr(a: Array) -> Array:
+    return a if _is_torch(a) else np.asarray(a)
+
+
+def _const(a: Array, v: int):
+    """A constant usable against `a` (a Python int for torch, whose int64
+    holds every 32-bit value; the array's own scalar type for numpy)."""
+    if _is_torch(a):
+        return v
+    return np.asarray(a).dtype.type(v)
+
+
+def _where(c, x, y, like: Array) -> Array:
+    if _is_torch(like):
+        return torch.where(c, x, y)
+    return np.where(c, x, y).astype(np.asarray(like).dtype)
+
+
+def mask_of(d: int) -> int:
+    return (1 << d) - 1
+
+
+def _masked(a: Array, d: int) -> Array:
+    return a & _const(a, mask_of(d))
+
+
+@_wrapok
+def lowbit(a: Array) -> Array:
+    """Lowest set bit of each address; 0 for the root address 0."""
+    a = _arr(a)
+    return a & (~a + _const(a, 1))
+
+
+_M1 = 0x5555555555555555
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+
+
+def popcount(a: Array) -> Array:
+    """Set-bit count. torch has no popcount: int64 SWAR form, exact for
+    non-negative values (every d-bit address, d <= 32)."""
+    if _is_torch(a):
+        x = a - ((a >> 1) & _M1)
+        x = (x & _M2) + ((x >> 2) & _M2)
+        x = (x + (x >> 4)) & _M4
+        x = x + (x >> 8)
+        x = x + (x >> 16)
+        x = x + (x >> 32)
+        return x & 0x7F
+    return np.bitwise_count(a).astype(np.asarray(a).dtype)
+
+
+@_wrapok
+def trailing_zeros(a: Array, d: int) -> Array:
+    """Number of trailing zeros; returns d for the all-zero (root) address."""
+    a = _arr(a)
+    tz = popcount(lowbit(a) - _const(a, 1))
+    return _where(a == 0, _const(a, d), tz, a)
+
+
+@_wrapok
+def highbit(a: Array, d: int) -> Array:
+    """Highest set bit of each address; 0 if the address is 0."""
+    a = _arr(a)
+    x = a
+    shift = 1
+    # torch int64 holds 32-bit values: the uint32 reference's 5 folds
+    nbits = 32 if _is_torch(a) or np.dtype(a.dtype).itemsize < 8 else 64
+    while shift < nbits:
+        x = x | (x >> _const(a, shift))
+        shift <<= 1
+    return _masked(x - (x >> _const(a, 1)), d)
+
+
+@_wrapok
+def up(pos: Array, d: int) -> Array:
+    """Parent position. UP(root)=root."""
+    pos = _arr(pos)
+    m = lowbit(pos)
+    m2 = _masked(m << _const(pos, 1), d)  # bit above the lowbit
+    is_cw_child = (pos & m2) != 0
+    up_cw = pos ^ m
+    up_ccw = _masked((pos ^ m) | m2, d)  # MSB case -> 0 (root)
+    out = _where(is_cw_child, up_cw, up_ccw, pos)
+    return _where(pos == 0, pos, out, pos)
+
+
+@_wrapok
+def cw(pos: Array, d: int) -> Array:
+    """Clockwise descendant. CW(root) = 10^(d-1); a leaf returns itself."""
+    pos = _arr(pos)
+    child = pos | (lowbit(pos) >> _const(pos, 1))
+    return _where(pos == 0, _const(pos, 1 << (d - 1)), child, pos)
+
+
+@_wrapok
+def ccw(pos: Array, d: int) -> Array:
+    """Counterclockwise descendant; undefined for root (returns 0)."""
+    pos = _arr(pos)
+    m = lowbit(pos)
+    child = (pos ^ m) | (m >> _const(pos, 1))
+    return _where(pos == 0, pos, child, pos)
+
+
+def is_leaf(pos: Array) -> Array:
+    """Addresses ending with a set bit (k = 0) have no descendants."""
+    return (pos & _const(pos, 1)) != 0
+
+
+@_wrapok
+def in_subtree(x: Array, y: Array, d: int) -> Array:
+    """Is address y inside the subtree rooted at position x (inclusive)?"""
+    x, y = _arr(x), _arr(y)
+    s = lowbit(x)
+    one = _const(x, 1)
+    size = _masked((s << one) - one, d)  # 2s - 1 addresses
+    rel = _masked(y - (x - s) - one, d)
+    inside = rel < size
+    if _is_torch(x):
+        return torch.where(x == 0, torch.ones_like(inside), inside)
+    return np.where(np.asarray(x) == 0, True, inside)
+
+
+def is_foreparent(x: Array, y: Array, d: int) -> Array:
+    """Is position x a strict ancestor of address y?"""
+    return in_subtree(x, y, d) & (x != y)
+
+
+@_wrapok
+def in_cw_subtree(x: Array, y: Array, d: int) -> Array:
+    """Is y inside the clockwise subtree of x?  range (x, x + s - 1]."""
+    x, y = _arr(x), _arr(y)
+    s = lowbit(x)
+    one = _const(x, 1)
+    rel = _masked(y - x - one, d)
+    inside = rel < (s - one)
+    root_case = y != 0  # CW subtree of the root is every non-zero address
+    if _is_torch(x):
+        return torch.where(x == 0, root_case, inside)
+    return np.where(np.asarray(x) == 0, root_case, inside)
+
+
+@_wrapok
+def position_from_segment(prev: Array, self_addr: Array, d: int) -> Array:
+    """Tree position of the peer owning segment (prev, self]; the wrapped
+    segment (prev >= self) takes the root position 0."""
+    prev, self_addr = _arr(prev), _arr(self_addr)
+    h = highbit(prev ^ self_addr, d)  # the first differing bit
+    pos = self_addr & ~(h - _const(h, 1))
+    return _where(prev >= self_addr, _const(pos, 0), pos, pos)
+
+
+def ring_positions(addrs_sorted: Array, d: int) -> Array:
+    """Positions of all peers given the sorted ring of peer addresses."""
+    if _is_torch(addrs_sorted):
+        prev = torch.roll(addrs_sorted, 1)
+    else:
+        prev = np.roll(addrs_sorted, 1)
+    return position_from_segment(prev, addrs_sorted, d)
+
+
+def direction_of(origin_pos: Array, self_pos: Array, d: int) -> Array:
+    """Direction (0=UP, 1=CW, 2=CCW) of `origin_pos` seen from `self_pos`."""
+    from_up = is_foreparent(origin_pos, self_pos, d)
+    from_cw = in_cw_subtree(self_pos, origin_pos, d)
+    if _is_torch(self_pos):
+        return torch.where(from_up, 0, torch.where(from_cw, 1, 2))
+    return np.where(from_up, 0, np.where(from_cw, 1, 2))
+
+
+def random_ring(n: int, d: int, seed: int, dtype=np.uint64) -> np.ndarray:
+    """n distinct random d-bit peer addresses, sorted ascending (numpy)."""
+    if n > mask_of(d):
+        raise ValueError(f"cannot place {n} peers in a {d}-bit space")
+    rng = np.random.default_rng(seed)
+    out = np.empty(0, dtype=dtype)
+    need = n
+    while need > 0:
+        cand = rng.integers(0, mask_of(d), size=2 * need + 16, dtype=np.uint64)
+        cand = (cand & np.uint64(mask_of(d))).astype(dtype)
+        out = np.unique(np.concatenate([out, cand]))
+        need = n - out.size
+    if out.size > n:
+        out = rng.choice(out, size=n, replace=False)
+        out.sort()
+    return out

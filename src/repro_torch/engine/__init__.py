@@ -1,0 +1,53 @@
+"""The port's cycle engine (first slice: single device, majority).
+
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+    eng = make_engine("torch", ring, votes, seed=0)   # on the GPU
+    res = eng.run_until_converged(truth=1)
+
+`make_engine("torch", ...)` builds a `TorchEngine` (engine.torch_backend)
+on CUDA unless ``device`` names another device; it raises when CUDA is
+absent rather than falling back to the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .base import EngineResult, FaultConfig, coalesced_update
+from .problems import MAJORITY, Majority, ThresholdProblem, get_problem
+
+BACKENDS = ("torch",)
+
+
+def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
+                **kwargs):
+    """Construct the port's engine over `ring` with per-peer `votes`.
+
+    `backend` must be ``"torch"``. ``device=None`` means CUDA. Keyword
+    arguments are `TorchEngine`'s: ``capacity_per_peer`` (default 6, as
+    the reference), ``work_budget``, ``problem`` (only majority in this
+    slice: others raise NotImplementedError naming the ROADMAP item) and
+    ``wheel_kernels`` ("auto": the CUDA kernels; "none": their plain
+    versions).
+    """
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown engine backend {backend!r}; want one of {BACKENDS}")
+    from .torch_backend import TorchEngine
+
+    return TorchEngine(ring, votes, seed=seed, device=device, **kwargs)
+
+
+def __getattr__(name):
+    # the engine module imports the kernels, whose plain versions import
+    # this package's protocol: load it on first use, not at import
+    if name in ("DeviceState", "TorchEngine"):
+        from . import torch_backend
+
+        return getattr(torch_backend, name)
+    raise AttributeError(name)
+
+
+__all__ = ["BACKENDS", "DeviceState", "EngineResult", "FaultConfig",
+           "MAJORITY", "Majority", "ThresholdProblem", "TorchEngine",
+           "coalesced_update", "get_problem", "make_engine"]

@@ -1,0 +1,55 @@
+"""State conversion between the port and host numpy arrays.
+
+`state_from_numpy` builds a `DeviceState` from a dict of numpy arrays
+keyed by field name — for instance the reference engine's state, handed
+over as ``{k: np.asarray(v) for k, v in jax_eng._st._asdict().items()}``
+— so both engines can start from the same state; the port itself never
+touches jax. uint32 fields become int64 tensors holding the same values;
+`state_to_numpy` converts back to the reference's dtypes, checking that
+every 32-bit field still holds a 32-bit value.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.engine.torch_backend import M32, U32_FIELDS, DeviceState
+
+_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray],
+                     device="cpu") -> DeviceState:
+    """`DeviceState` on `device` from numpy arrays of the reference's
+    dtypes (uint32 for addresses, wheel rows and the salt; int32; bool)."""
+    missing = set(DeviceState._fields) - set(arrays)
+    if missing:
+        raise KeyError(f"state lacks fields {sorted(missing)}")
+    out = {}
+    for k in DeviceState._fields:
+        a = np.asarray(arrays[k])
+        if k in U32_FIELDS:
+            if a.dtype != np.uint32:
+                raise TypeError(f"{k}: want uint32, got {a.dtype}")
+            t = torch.from_numpy(a.astype(np.int64))
+        elif a.dtype in _DTYPES:
+            t = torch.from_numpy(np.array(a))
+        else:
+            raise TypeError(f"{k}: unsupported dtype {a.dtype}")
+        out[k] = t.to(device)
+    return DeviceState(**out)
+
+
+def state_to_numpy(state: DeviceState) -> Dict[str, np.ndarray]:
+    """Host copy of `state` in the reference's dtypes."""
+    out = {}
+    for k in DeviceState._fields:
+        a = getattr(state, k).detach().cpu().numpy()
+        if k in U32_FIELDS:
+            if a.size and (a.min() < 0 or a.max() > M32):
+                raise ValueError(f"{k} holds a value outside 32 bits")
+            a = a.astype(np.uint32)
+        out[k] = a
+    return out

@@ -1,0 +1,829 @@
+"""Device-resident majority-voting engine on PyTorch (single device).
+
+The counterpart of `repro.engine.jax_backend.JaxEngine` for this slice:
+the owner-partitioned delivery wheel, the superstep cycle
+(`_cycle` ≙ ``_cycle_impl``), the full-width event react (init storm,
+`set_votes` / `apply_coalesced`), the step and convergence loops, the
+counters and the conservation check. For the same ring, votes, seed and
+sizing, the state after every cycle is bit-identical to
+``JaxEngine(kernel="ref", wheel_kernels="none")``.
+
+How the JAX program maps onto eager PyTorch:
+
+  * addresses and wheel rows are uint32 in JAX; here they are int64
+    holding the same values (CPU torch has no uint32 arithmetic), masked
+    to 32 bits wherever the reference wraps (`_hash_u32`, ``t + delay``,
+    the address algebra);
+  * JAX arrays are immutable; this engine updates its state IN PLACE
+    (the wheel alone is ~1 GB at n = 1e6), so `DeviceState` is one fixed
+    record of tensors. The reference's dropping scatters
+    (``.at[].set(mode="drop")``) write their sentinel index into one
+    extra row that the storage of `inbox`, `out`, `wheel` and `awheel`
+    carries past the end of the state's view;
+  * the cycle counter `t`, the event counter and the enqueue salt are
+    mirrored on the host (they advance deterministically), so slot
+    selection and the per-cycle permutation index are host integers and
+    the cycle runs without any host sync. The ``lax.cond`` branches are
+    branch-free here with the same bits (see `_cycle`);
+  * `run_until_converged` reads the on-device convergence check once per
+    cycle (CUDA graphs and per-chunk syncing are later work).
+
+The four delivery-wheel kernels (`kernels.wheel`) are called through
+their wrappers: on CUDA tensors they launch the hand-written CUDA
+kernels; ``wheel_kernels="none"`` selects their plain PyTorch versions
+instead (the parity surface). Churn (`join` / `leave`), the fault plane
+and the mean/L2 problems are later slices and raise here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import addressing as A
+from repro_torch.core.simulator import MAX_DELAY, MIN_DELAY
+from repro_torch.engine import protocol as P
+from repro_torch.engine.base import (EngineResult, coalesced_update,
+                                     run_convergence_loop)
+from repro_torch.engine.problems import NOT_PORTED, Majority, get_problem
+from repro_torch.kernels.wheel import (descent_reference,
+                                       descent_tail, due_dedup,
+                                       due_dedup_reference, stage_rows,
+                                       stage_rows_reference, threshold_step,
+                                       threshold_step_reference)
+from repro_torch.kernels.wheel._common import in_segment
+
+NDIR = 3
+I32, I64 = torch.int32, torch.int64
+M32 = 0xFFFFFFFF
+
+# message-row columns: 4 router columns, P payload columns, SEQ, DELIVER_T
+ORIGIN, DEST, EDGE, HAS_EDGE, PAY0 = range(5)
+CONT = 2   # HAS_EDGE bit 1: the row resumes an internal descent
+LATE = 4   # HAS_EDGE bit 2: the row already missed a drain window once
+NO_ADDR = M32  # padded-ring sentinel: the row is vacant
+
+SLOTS = MAX_DELAY + 1   # delivery-wheel slots
+NPERM = 16              # per-cycle delay permutations kept in the state
+ALERT_W = 64            # ALERT side-wheel row baseline
+MAX_LANES = 8           # owner-lane count cap
+
+CHURN_NOT_PORTED = ("Alg. 2 churn (join/leave/_grow) is not ported yet "
+                    "(ROADMAP.md, queue A: 'Alg. 2 churn')")
+FAULTS_NOT_PORTED = ("the fault plane is not ported yet "
+                     "(ROADMAP.md, queue A: 'Fault plane')")
+
+# fields held as uint32 by the reference (int64 here)
+U32_FIELDS = frozenset({"addrs", "prev", "pos", "wheel", "awheel",
+                        "salt_enq"})
+
+
+def _next_pow2(v: int) -> int:
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+def _u32(a: torch.Tensor) -> torch.Tensor:
+    """The reference's ``astype(uint32)``: int64 holding the low 32 bits."""
+    return a.to(I64) & M32
+
+
+def _i32(a: torch.Tensor) -> torch.Tensor:
+    """The reference's uint32 -> int32 ``astype``: two's complement of the
+    low 32 bits."""
+    return (((a & M32) ^ 0x80000000) - 0x80000000).to(I32)
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for a in [0, 2^32) without overflowing int64: the
+    constant is split into 16-bit halves (works on ints and tensors)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & M32
+
+
+def hash_u32(idx, t, salt):
+    """The reference engine's integer mix (`jax_backend._hash_u32`) as a
+    uint32 value in int64; `idx`, `t`, `salt` are ints or int tensors."""
+    h = _mul32(idx & M32, 0x9E3779B1)
+    h = (h + _mul32(t & M32, 0x85EBCA77) + (salt & M32)) & M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def hash_delay(idx, t, salt):
+    """Uniform MIN_DELAY..MAX_DELAY delay (int32) from (row, cycle, seed)."""
+    span = MAX_DELAY - MIN_DELAY + 1
+    return (MIN_DELAY + hash_u32(idx, t, salt) % span).to(I32)
+
+
+def knowledge_outputs(problem, inbox: torch.Tensor, x: torch.Tensor,
+                      pd: int) -> torch.Tensor:
+    """(pd,) bool threshold outputs: the sign of margin(K), with the
+    knowledge K = X_self + sum_v X_in from the flat per-link inbox."""
+    pw = problem.payload_width
+    k = inbox[:, :pw].reshape(pd, NDIR, pw).sum(-2, dtype=inbox.dtype)
+    k = k + torch.cat([x, torch.ones_like(x[:, :1])], dim=-1)
+    return problem.margin(torch, k) >= 0
+
+
+class DeviceState(NamedTuple):
+    """Complete simulation state, field for field the reference's
+    `jax_backend.DeviceState` (uint32 fields are int64 here). Peer rows
+    are padded to `pad`; the wheel arenas and wheel counters carry a
+    leading owner-lane axis."""
+
+    x: torch.Tensor        # (pad, D)      int32 own data (majority: votes)
+    inbox: torch.Tensor    # (pad*3, P+1)  int32 per-link [X_in payload, seq]
+    out: torch.Tensor      # (pad, 3P+1)   int32 [X_out per dir]*P, seq
+    addrs: torch.Tensor    # (pad,) ascending prefix then NO_ADDR
+    prev: torch.Tensor     # (pad,) predecessor addresses (cyclic)
+    pos: torch.Tensor      # (pad,) tree positions
+    n_live: torch.Tensor   # ()     int32 occupied row count
+    wheel: torch.Tensor    # (L, SLOTS, W_l, roww) data rows
+    wcnt: torch.Tensor     # (L, SLOTS) int32 live rows per slot
+    awheel: torch.Tensor   # (L, SLOTS, A_l, roww) Alg. 2 ALERT rows
+    acnt: torch.Tensor     # (L, SLOTS) int32
+    perms: torch.Tensor    # (NPERM, 10) int32 delay permutations of 1..10
+    salt_enq: torch.Tensor  # () event-path delay salt
+    evt_ctr: torch.Tensor  # () int32 event counter
+    t: torch.Tensor        # () int32
+    messages_sent: torch.Tensor  # (L,) int32 network deliveries consumed
+    dropped: torch.Tensor  # (L,) int32 arena overflow (should stay 0)
+    deferred: torch.Tensor  # (L,) int32 deliveries pushed past the budget
+    enq: torch.Tensor      # (L,) int32 rows ever appended
+    ret: torch.Tensor      # (L,) int32 rows ever drained
+    dead: torch.Tensor     # (pad,) bool   fault plane (idle in this slice)
+    heard: torch.Tensor    # (pad*3,) int32
+    probed: torch.Tensor   # (pad*3,) int32
+    lost: torch.Tensor     # (L,) int32
+
+
+class PeerPlane:
+    """Access layer for the O(n) per-peer planes (`x`, `inbox`, `out`)
+    and the owner-lane boundary of the wheel — the single-device form
+    of the reference's `PeerPlane`: global row indices are tensor
+    indices and the lane exchange is the identity. Scatters drop rows
+    whose index is the sentinel (`pad` for peers, `pad * 3` for links)
+    into the storage's extra row."""
+
+    def __init__(self, eng: "TorchEngine"):
+        self.eng = eng
+
+    def take_peer(self, arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return arr[idx]
+
+    def take_link(self, arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return arr[idx]
+
+    def put_peer(self, name: str, idx: torch.Tensor, val: torch.Tensor) -> None:
+        self.eng._store[name].index_put_((idx,), val)
+
+    put_link = put_peer
+
+    def occ(self) -> torch.Tensor:
+        return torch.arange(self.eng.pad, device=self.eng.device) < self.eng.n
+
+    def exchange(self, arr: torch.Tensor) -> torch.Tensor:
+        """Lane boundary exchange (identity on one device)."""
+        return arr
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: CUDA unless the caller names another. Raises
+    when CUDA is asked for and absent — never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless "
+            "the caller passes device='cpu'")
+    return dev
+
+
+class TorchEngine:
+    """Device-backed majority engine (the `MajorityEngine` API of
+    `repro.engine.base`, minus churn and faults in this slice)."""
+
+    backend = "torch"
+
+    def __init__(self, ring, votes: Optional[np.ndarray], seed: int = 0,
+                 capacity_per_peer: int = 6, work_budget: int = 0,
+                 problem=None, wheel_kernels="auto", faults=None,
+                 device="cuda", _state: Optional[DeviceState] = None):
+        if faults is not None:
+            raise NotImplementedError(FAULTS_NOT_PORTED)
+        if ring.d > 32:
+            raise ValueError(
+                f"torch engine needs d <= 32 (32-bit addresses), got d={ring.d}")
+        self.problem = get_problem(problem)
+        if not isinstance(self.problem, Majority):
+            raise NotImplementedError(NOT_PORTED)
+        self.device = resolve_device(device)
+        if wheel_kernels not in ("auto", "none"):
+            raise ValueError(
+                f"wheel_kernels must be 'auto' or 'none', got {wheel_kernels!r}")
+        # the kernel wrappers (the CUDA kernels on CUDA tensors), or with
+        # "none" their plain versions — the parity surface on the card
+        on = wheel_kernels == "auto"
+        self._stage = stage_rows if on else stage_rows_reference
+        self._dedup = due_dedup if on else due_dedup_reference
+        self._descent = descent_tail if on else descent_reference
+        self._thresh = threshold_step if on else threshold_step_reference
+        self.pw = int(self.problem.payload_width)
+        self.dw = int(self.problem.data_width)
+        self._SEQ = PAY0 + self.pw
+        self._DT = self._SEQ + 1
+        self.roww = self._DT + 1
+        self.ring = ring
+        self.n = int(ring.n)
+        self.d = int(ring.d)
+        self._cpp = int(capacity_per_peer)
+        self._wb_req = int(work_budget)
+        self.pad = _next_pow2(max(self.n + max(8, self.n // 8), 64))
+        self._size_tables()
+        self._plane = PeerPlane(self)
+        if _state is not None:
+            self._adopt(_state)
+            return
+        if votes.shape[0] != ring.n:
+            raise ValueError(f"{votes.shape[0]} votes for {ring.n} peers")
+        self._adopt(self._initial_state(ring, votes, seed))
+        self._react(self._plane.occ())
+
+    @classmethod
+    def from_state(cls, ring, state, seed: int = 0, **sizing) -> "TorchEngine":
+        """Resume from a state (a `DeviceState`, or the reference engine's
+        state as a dict of numpy arrays, see `engine.convert`). `sizing`
+        must match the engine that produced it (capacity_per_peer,
+        work_budget); the RNG material is the state's own,
+        so `seed` changes nothing."""
+        from repro_torch.engine.convert import state_from_numpy
+
+        if isinstance(state, dict):
+            state = state_from_numpy(state)
+        return cls(ring, None, seed=seed, _state=state, **sizing)
+
+    def _size_tables(self):
+        """Owner lanes, drain budget and arena sizes — the reference's
+        `_size_tables` formulas verbatim."""
+        self.lanes = min(MAX_LANES, self.pad & -self.pad)
+        self.lane_rows = self.pad // self.lanes
+        L = self.lanes
+        b_req = self._wb_req or max(512, self.pad // 8)
+        self.lane_budget = max(1, b_req // L)
+        self.work_budget = self.lane_budget * L
+        self.lane_cap = max(4, min(128, 32 * self._cpp) // min(L, 4),
+                            self._cpp * self.pad // (16 * L))
+        self.lane_alert_w = max(16, ALERT_W // L)
+        self.lane_width = max(self.lane_cap, self.lane_budget) + self.lane_budget
+        self.window_l = self.lane_alert_w + self.lane_budget
+        self.narrow_l = max(self.lane_alert_w + 8, self.window_l // 8)
+
+    def _initial_state(self, ring, votes: np.ndarray, seed: int) -> DeviceState:
+        """Fresh state for (ring, votes, seed), before the init react; the
+        RNG draws are the reference's, in its order."""
+        pd, L, dev = self.pad, self.lanes, self.device
+        rng = np.random.default_rng(seed)
+        salt = int(rng.integers(0, 2**32, dtype=np.uint64))
+        perms = np.stack([rng.permutation(10) + MIN_DELAY
+                          for _ in range(NPERM)]).astype(np.int32)
+        addrs = np.full(pd, NO_ADDR, np.int64)
+        addrs[: self.n] = ring.addrs.astype(np.int64)
+        x = np.zeros((pd, self.dw), np.int32)
+        x[: self.n] = self.problem.init_state(votes).astype(np.int32)
+        addrs_t = torch.from_numpy(addrs).to(dev)
+        idx = torch.arange(pd, device=dev)
+        prev = addrs_t[(idx - 1) % self.n]
+        z = lambda *shape, dtype=I32: torch.zeros(shape, dtype=dtype, device=dev)
+        return DeviceState(
+            x=torch.from_numpy(x).to(dev),
+            inbox=z(pd * NDIR, self.pw + 1), out=z(pd, NDIR * self.pw + 1),
+            addrs=addrs_t, prev=prev,
+            pos=A.position_from_segment(prev, addrs_t, self.d),
+            n_live=torch.tensor(self.n, dtype=I32, device=dev),
+            wheel=z(L, SLOTS, self.lane_width, self.roww, dtype=I64),
+            wcnt=z(L, SLOTS),
+            awheel=z(L, SLOTS, self.lane_alert_w, self.roww, dtype=I64),
+            acnt=z(L, SLOTS),
+            perms=torch.from_numpy(perms).to(dev),
+            salt_enq=torch.tensor(salt, dtype=I64, device=dev),
+            evt_ctr=z(), t=z(),
+            messages_sent=z(L), dropped=z(L), deferred=z(L), enq=z(L),
+            ret=z(L), dead=z(pd, dtype=torch.bool), heard=z(pd * NDIR),
+            probed=z(pd * NDIR), lost=z(L),
+        )
+
+    def _adopt(self, st: DeviceState) -> None:
+        """Take `st` as this engine's state: copy it to the engine's device
+        into storage with one sentinel row past each scattered plane, and
+        mirror the host-side scalars."""
+        dev = self.device
+        want = {"x": (self.pad, self.dw), "inbox": (self.pad * NDIR, self.pw + 1),
+                "out": (self.pad, NDIR * self.pw + 1),
+                "wheel": (self.lanes, SLOTS, self.lane_width, self.roww),
+                "awheel": (self.lanes, SLOTS, self.lane_alert_w, self.roww)}
+        for k, shape in want.items():
+            if tuple(getattr(st, k).shape) != shape:
+                raise ValueError(f"state {k} has shape {tuple(getattr(st, k).shape)}"
+                                 f", this sizing wants {shape}")
+        if int(st.n_live) != self.n:
+            raise ValueError("state n_live differs from the ring size")
+        self._store = {}
+        fields = {}
+        for k in DeviceState._fields:
+            v = getattr(st, k).to(dev)
+            if k in ("inbox", "out", "wheel", "awheel"):
+                rows = v.reshape(-1, v.shape[-1])
+                buf = torch.zeros((rows.shape[0] + 1, rows.shape[1]),
+                                  dtype=v.dtype, device=dev)
+                buf[:-1].copy_(rows)
+                self._store[k] = buf
+                v = buf[:-1].view(v.shape)
+            else:
+                v = v.clone()
+            fields[k] = v
+        self._st = DeviceState(**fields)
+        self._t = int(st.t)
+        self._evt = int(st.evt_ctr)
+        self._salt = int(st.salt_enq)
+
+    # -- shared helpers ------------------------------------------------------
+
+    def _owner_of(self, q: torch.Tensor) -> torch.Tensor:
+        """Peer row owning each address (successor with wrap): one binary
+        search over the padded sorted-prefix table."""
+        return torch.searchsorted(self._st.addrs, q.contiguous(),
+                                  side="left") % self.n
+
+    def _lane_of(self, dest: torch.Tensor) -> torch.Tensor:
+        return self._owner_of(dest) // self.lane_rows
+
+    @staticmethod
+    def _compact(mask: torch.Tensor, budget: int):
+        """Indices of the first `budget` set bits of `mask` along its last
+        axis (its length where exhausted), and the ordinal cumsum."""
+        cum = torch.cumsum(mask.to(I32), dim=-1, dtype=I64)
+        q = torch.arange(1, budget + 1, device=mask.device)
+        q = q.expand(*mask.shape[:-1], budget).contiguous()
+        return torch.searchsorted(cum, q, side="left"), cum
+
+    @staticmethod
+    def _group_ranks(g: torch.Tensor, live: torch.Tensor, n_groups: int):
+        """Stable within-group ranks and per-group counts of a flat row
+        batch: rank[i] = #live rows j < i with g[j] == g[i]."""
+        m = g.shape[0]
+        key = torch.where(live, g, n_groups)
+        ks, order = torch.sort(key, stable=True)
+        first = torch.searchsorted(ks, ks, side="left")
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(m, device=g.device) - first
+        # group sizes from the group starts in the sorted keys (a scatter-
+        # add onto the few group counters would serialize on atomics)
+        starts = torch.searchsorted(
+            ks, torch.arange(n_groups + 1, device=g.device), side="left")
+        return rank, torch.diff(starts).to(I32)
+
+    def _append_rows(self, name: str, cnt: torch.Tensor, rows: torch.Tensor,
+                     lane: torch.Tensor, slot: torch.Tensor,
+                     live: torch.Tensor, cap: int):
+        """Append `rows` (m, roww) to the arenas of wheel `name` at
+        cnt[lane, slot] + stable rank within the (lane, slot) group;
+        overflow past `cap` drops. Updates `cnt` in place and returns
+        (attempted (L,), dropped (L,)) int32."""
+        L = self.lanes
+        width = self.lane_width if name == "wheel" else self.lane_alert_w
+        rank, counts = self._group_ranks(lane * SLOTS + slot, live, L * SLOTS)
+        lsafe = torch.where(live, lane, 0)
+        off = cnt[lsafe, slot] + rank
+        ok = live & (off < cap)
+        flat = torch.where(ok, (lsafe * SLOTS + slot) * width + off,
+                           L * SLOTS * width)
+        self._store[name].index_put_((flat,), rows)
+        counts = counts.reshape(L, SLOTS)
+        added = torch.minimum(counts, cap - cnt)
+        cnt += added
+        attempted = counts.sum(1, dtype=I32)
+        return attempted, attempted - added.sum(1, dtype=I32)
+
+    def _out_pay(self, out: torch.Tensor) -> torch.Tensor:
+        """(..., 3P+1) out rows -> (..., 3, P) X_out payload planes."""
+        return torch.stack([out[..., c * NDIR:(c + 1) * NDIR]
+                            for c in range(self.pw)], dim=-1)
+
+    def _pack_out(self, pay: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+        """Inverse of `_out_pay`: (..., 3, P) payload + (...,) seq."""
+        return torch.cat([pay[..., c] for c in range(self.pw)]
+                         + [seq[..., None]], dim=-1)
+
+    def _rules(self, in_pay, out_pay, x):
+        """The threshold rules: the `threshold_step` kernel, or its plain
+        version when the engine's kernels are off."""
+        return self._thresh(self.problem, in_pay.contiguous(),
+                            out_pay.contiguous(), x.contiguous())
+
+    def _outputs_match(self, truth: int) -> torch.Tensor:
+        """The threshold convergence predicate, on device (0-d bool)."""
+        st = self._st
+        out = knowledge_outputs(self.problem, st.inbox, st.x, self.pad).to(I32)
+        ok = self.problem.converged(torch, out, truth) | ~self._plane.occ()
+        return ok.all()
+
+    # -- event path (full-width react, ranked append, hashed delays) --------
+
+    def _enqueue_events(self, cand, origin, dest, edge, has_edge, pay, seq):
+        """Append the `cand` rows of an event to the wheel of each DEST
+        owner's lane, due after a per-row hashed delay."""
+        st = self._st
+        m = cand.shape[0]
+        rix = torch.arange(m, device=self.device)
+        due = self._t + hash_delay(rix, self._t + self._evt, self._salt)
+        rows = torch.stack(
+            [_u32(origin), _u32(dest), _u32(edge), _u32(has_edge)]
+            + [_u32(pay[:, c]) for c in range(self.pw)]
+            + [_u32(seq), _u32(due)], dim=1)
+        att, dro = self._append_rows("wheel", st.wcnt, rows, self._lane_of(dest),
+                                     due.long() % SLOTS, cand, self.lane_cap)
+        st.enq.add_(att)
+        st.dropped.add_(dro)
+        st.evt_ctr.add_(1)
+        self._evt += 1
+
+    def _react(self, touched: torch.Tensor) -> None:
+        """Threshold test() + Send(v) for all `touched` peers (full-width
+        event path: initialization and data changes)."""
+        st, pd, pw = self._st, self.pad, self.pw
+        in_pay = st.inbox[:, :pw].reshape(pd, NDIR, pw)
+        viol, _, pay = self._rules(in_pay, self._out_pay(st.out), st.x)
+        eff = viol & touched[:, None]
+        seq = st.out[:, NDIR * pw] + eff.any(1).to(I32)
+        new_pay = torch.where(eff[..., None], pay, self._out_pay(st.out))
+        st.out.copy_(self._pack_out(new_pay, seq))
+        dirs = torch.arange(NDIR, device=self.device).expand(pd, NDIR)
+        bc = lambda a: a[:, None].expand(pd, NDIR)
+        valid, origin, dest, edge, has_edge = P.send_fields(
+            bc(st.pos), dirs, bc(st.addrs), bc(st.prev), self.d)
+        self._enqueue_events(
+            (eff & valid).reshape(-1), origin.reshape(-1), dest.reshape(-1),
+            edge.reshape(-1), has_edge.reshape(-1), pay.reshape(-1, pw),
+            bc(seq).reshape(-1))
+
+    # -- the cycle -----------------------------------------------------------
+
+    def _cycle(self) -> None:
+        """One simulation cycle, in place: drain each lane's due bucket,
+        route, accept, react; stage every re-entering or new row with its
+        lane-relative delay ordinal; append to the owner lanes."""
+        st, pl, dev = self._st, self._plane, self.device
+        pd, d, L, pw = self.pad, self.d, self.lanes, self.pw
+        Bl, Al = self.lane_budget, self.lane_alert_w
+        WWl, Wl, cap, roww = self.window_l, self.lane_width, self.lane_cap, self.roww
+        WW = L * WWl
+        t = self._t
+        s, s1 = t % SLOTS, (t + 1) % SLOTS
+        # the due slot's rows; every read of `sbuf` (a view) happens
+        # before the slot is rewritten below
+        sbuf = st.wheel[:, s]
+        n_alert = st.acnt[:, s].clone()
+        dcnt = st.wcnt[:, s].clone()
+        n_data = torch.clamp(dcnt, max=Bl)
+
+        # lane-major window: per lane [A_l alert rows, B_l data rows]
+        w = torch.cat([st.awheel[:, s], sbuf[:, :Bl]], dim=1).reshape(WW, roww)
+        li = torch.arange(WWl, device=dev)
+        is_alert_l = li < Al
+        live = torch.where(is_alert_l[None, :], li[None, :] < n_alert[:, None],
+                           (li - Al)[None, :] < n_data[:, None]).reshape(WW)
+        is_alert = is_alert_l.expand(L, WWl).reshape(WW)
+        has_alerts = n_alert.sum() > 0
+        w_origin, w_dest, w_edge = w[:, ORIGIN], w[:, DEST], w[:, EDGE]
+        w_has_edge = ((w[:, HAS_EDGE] & 1) != 0) & live
+        w_cont = (w[:, HAS_EDGE] & CONT) != 0
+        w_pay = w[:, PAY0:PAY0 + pw]
+        w_seq = _i32(w[:, self._SEQ])
+
+        owner = self._owner_of(w_dest)
+        pos_i, a_prev, a_self = st.pos[owner], st.prev[owner], st.addrs[owner]
+        self_seg = in_segment(w_origin, a_prev, a_self)
+        max_addr = st.addrs[self.n - 1:self.n]
+
+        # ---- Alg. 1 delivery: two full-width descent steps, then the
+        # narrow tail for the few rows still descending
+        entry = live & ~w_cont
+        lv, cur_d, cur_e, cur_h = live, w_dest, w_edge, w_has_edge
+        acc = torch.zeros(WW, dtype=torch.bool, device=dev)
+        drop = torch.zeros_like(acc)
+        o_dest, o_edge, o_he = w_dest, w_edge, w_has_edge
+        for _ in range(2):
+            dlv = P.deliver_rules(
+                origin=w_origin, dest=cur_d, edge=cur_e, has_edge=cur_h,
+                network_entry=entry, pos_i=pos_i, a_prev=a_prev,
+                a_self=a_self, self_seg=self_seg, max_addr=max_addr, d=d)
+            moving = lv & ~dlv.accept & ~dlv.drop
+            stay = moving & in_segment(dlv.new_dest, a_prev, a_self)
+            fwdn = moving & ~stay
+            acc = acc | (lv & dlv.accept)
+            drop = drop | (lv & dlv.drop & ~dlv.accept)
+            o_dest = torch.where(fwdn, dlv.new_dest, o_dest)
+            o_edge = torch.where(fwdn, dlv.new_edge, o_edge)
+            o_he = torch.where(fwdn, dlv.new_has_edge, o_he)
+            cur_d = torch.where(stay, dlv.new_dest, cur_d)
+            cur_e = torch.where(stay, dlv.new_edge, cur_e)
+            cur_h = torch.where(stay, dlv.new_has_edge, cur_h)
+            entry = entry & ~stay
+            lv = stay
+        # narrow tail: compact the survivors per lane (alerts come first
+        # in each lane and narrow_l >= lane_alert_w, so only data spills)
+        NWl = self.narrow_l
+        NT = L * NWl
+        lv_l = lv.reshape(L, WWl)
+        sidx_l, scum_l = self._compact(lv_l, NWl)
+        spill = (lv_l & (scum_l > NWl)).reshape(WW)
+        sok_l = sidx_l < WWl
+        sp = torch.where(sok_l, sidx_l + (torch.arange(L, device=dev) * WWl)[:, None],
+                         0).reshape(NT)
+        sok = sok_l.reshape(NT)
+        acc2, drop2, od2, oe2, ohe2 = self._descent(
+            w_origin[sp], cur_d[sp], cur_e[sp], cur_h[sp], sok,
+            torch.zeros(NT, dtype=torch.bool, device=dev), pos_i[sp],
+            a_prev[sp], a_self[sp], self_seg[sp], max_addr, d)
+        pack = torch.stack([acc2.long() | (drop2.long() << 1), od2, oe2,
+                            ohe2.long()], dim=1)
+        stage = torch.zeros((WW + 1, 4), dtype=I64, device=dev)
+        stage.index_put_((torch.where(sok, sp, WW),), pack)
+        stage = stage[:WW]
+        merged = lv & ~spill
+        acc = acc | (merged & ((stage[:, 0] & 1) != 0))
+        drop = drop | (merged & ((stage[:, 0] & 2) != 0))
+        o_dest = torch.where(merged, stage[:, 1], o_dest)
+        o_edge = torch.where(merged, stage[:, 2], o_edge)
+        o_he = torch.where(merged, stage[:, 3] != 0, o_he)
+        fwd = live & ~acc & ~drop & ~spill
+
+        # ---- ACCEPT: one data winner per (peer, dir) link per cycle;
+        # losers re-enter the wheel. An accepted ALERT zeroes the link and
+        # forces Send(v).
+        recv = owner
+        flat = recv * NDIR + A.direction_of(w_origin, st.pos[recv], d)
+        acc_d = acc & ~is_alert
+        acc_a = acc & is_alert
+        sent = pd * NDIR  # scatter sentinel
+        link_seq = pl.take_link(st.inbox, flat)[:, pw].contiguous()
+        winner, loser, fresh, alert_write, is_rep, aforce = self._dedup(
+            flat, acc_d, acc_a, w_seq, link_seq, sent)
+        # one scatter: a fresh data write, or an alert zeroing a link with
+        # no data winner (alert rows on one link all write zeros)
+        data_idx = torch.where(fresh | alert_write, flat, sent)
+        data_val = torch.where(
+            alert_write[:, None], 0,
+            torch.cat([_i32(w_pay), w_seq[:, None]], dim=1))
+        pl.put_link("inbox", data_idx, data_val)
+
+        # ---- react: test() + Send on the touched peers, one
+        # representative window row per peer; the send block is scattered
+        # back to window-row positions (the staging ordinals are
+        # lane-relative)
+        reps_w, _ = self._compact(is_rep, WW)
+        rvalid = reps_w < WW
+        reps_safe = torch.where(rvalid, reps_w, 0)
+        rp = torch.where(rvalid, recv[reps_safe], 0)
+        link = rp[:, None] * NDIR + torch.arange(NDIR, device=dev)[None, :]
+        rin = pl.take_link(st.inbox, link)        # (WW, 3, P+1)
+        ro = pl.take_peer(st.out, rp)             # (WW, 3P+1)
+        viol, _, pay = self._rules(rin[..., :pw], self._out_pay(ro),
+                                   pl.take_peer(st.x, rp))
+        force = aforce[reps_safe] & has_alerts
+        eff = (viol | force) & rvalid[:, None]
+        seq2 = ro[:, NDIR * pw] + eff.any(1).to(I32)
+        ro2 = self._pack_out(torch.where(eff[..., None], pay, self._out_pay(ro)),
+                             seq2)
+        pl.put_peer("out", torch.where(rvalid, rp, pd), ro2)
+
+        dirs3 = torch.arange(NDIR, device=dev).expand(WW, NDIR)
+        bc = lambda a: a[:, None].expand(WW, NDIR)
+        valid, s_origin, s_dest, s_edge, s_he = P.send_fields(
+            bc(st.pos[rp]), dirs3, bc(st.addrs[rp]), bc(st.prev[rp]), d)
+        widx = torch.where(rvalid, reps_safe, WW)
+
+        def back(v):
+            o = torch.zeros((WW + 1,) + v.shape[1:], dtype=v.dtype, device=dev)
+            o.index_put_((widx,), v)
+            return o[:WW]
+
+        cand = back(eff & valid)          # (WW, NDIR) bool, window order
+        b_origin, b_dest = back(s_origin), back(s_dest)
+        b_edge, b_he = back(s_edge), back(s_he.long())
+        b_pay = back(pay)                 # (WW, NDIR, P)
+        b_seq = back(seq2)                # (WW,)
+
+        # ---- wheel maintenance: slip one cycle, shift leftovers to the
+        # front (revisited a revolution later), count each backlog row
+        # once (LATE bit)
+        wcnt_s1 = st.wcnt[:, s1].clone()
+        slip_avail = torch.clamp(dcnt - Bl, 0, Bl)
+        slip_k = torch.minimum(slip_avail, cap - wcnt_s1)
+        leftover = torch.clamp(dcnt - Bl - slip_k, 0, Wl - 2 * Bl)
+        tail = sbuf[:, Bl:]
+        tail_live = (torch.arange(Wl - Bl, device=dev)[None, :]
+                     < (dcnt - Bl)[:, None])
+        n_late_new = (tail_live & ((tail[:, :, HAS_EDGE] & LATE) == 0)).sum(
+            1, dtype=I32)
+        sh = (Bl + slip_k.long())[:, None] + torch.arange(Wl - 2 * Bl, device=dev)
+        shifted = torch.gather(sbuf, 1, sh[:, :, None].expand(L, Wl - 2 * Bl, roww))
+        shifted[:, :, HAS_EDGE] |= LATE
+        slip_rows = sbuf[:, Bl:2 * Bl].clone()
+        slip_rows[:, :, self._DT] = (t + 1) & M32
+        slip_rows[:, :, HAS_EDGE] |= LATE
+        st.wheel[:, s, :Wl - 2 * Bl] = shifted   # sbuf is stale from here
+        st.wcnt[:, s] = leftover
+        st.acnt[:, s] = 0
+        si = wcnt_s1.long()[:, None] + torch.arange(Bl, device=dev)
+        st.wheel[:, s1].scatter_(1, si[:, :, None].expand(L, Bl, roww), slip_rows)
+        st.wcnt[:, s1] = wcnt_s1 + slip_k
+
+        # ---- staging: one rigid per-lane block [WWl re-entry rows |
+        # 3*WWl send rows]; the delay ordinal is the row's rank within its
+        # lane's block, and `stage_rows` stamps DELIVER_T
+        f_dest = torch.where(fwd, o_dest, torch.where(spill, cur_d, w_dest))
+        f_edge = torch.where(fwd, o_edge, torch.where(spill, cur_e, w_edge))
+        f_he = (torch.where(fwd, o_he, torch.where(spill, cur_h, w_has_edge)).long()
+                | torch.where(spill | loser, CONT, 0))
+        re_rows = torch.stack(
+            [w_origin, f_dest, f_edge, f_he]
+            + [w_pay[:, c] for c in range(pw)]
+            + [w[:, self._SEQ], w[:, self._DT]], dim=1).reshape(L, WWl, roww)
+        u = lambda a: _u32(a.reshape(-1))
+        send_pay = b_pay.reshape(-1, pw)
+        send_rows = torch.stack(
+            [u(b_origin), u(b_dest), u(b_edge), u(b_he)]
+            + [_u32(send_pay[:, c]) for c in range(pw)]
+            + [u(bc(b_seq)), u(bc(b_seq))], dim=1).reshape(L, NDIR * WWl, roww)
+        re_mask = (fwd | loser | spill).reshape(L, WWl)
+        re_alert = (fwd & is_alert).reshape(L, WWl)
+        blk_rows = torch.cat([re_rows, send_rows], dim=1)
+        blk_mask = torch.cat([re_mask, cand.reshape(L, NDIR * WWl)], dim=1)
+        blk_alert = torch.cat(
+            [re_alert, torch.zeros((L, NDIR * WWl), dtype=torch.bool, device=dev)],
+            dim=1)
+        ordinal = torch.cumsum(blk_mask.to(I32), dim=1, dtype=I64) - 1
+        h = (((t + 1) & M32) * 0x9E3779B1 + self._salt) & M32
+        perm = st.perms[h >> 28]  # (10,) delays 1..10
+        staged = self._stage(blk_rows.reshape(-1, roww), blk_alert.reshape(-1),
+                             ordinal.reshape(-1), perm, t, self._DT)
+
+        # ---- boundary exchange (identity) + ranked owner-lane appends
+        grows = pl.exchange(staged)
+        glane = self._lane_of(grows[:, DEST])
+        gslot = _i32(grows[:, self._DT]).long() % SLOTS
+        glive, galert = blk_mask.reshape(-1), blk_alert.reshape(-1)
+        att_d, dro_d = self._append_rows("wheel", st.wcnt, grows, glane, gslot,
+                                         glive & ~galert, cap)
+        # ALERT appends: only the first A_l re-entry rows of each lane's
+        # block can be alerts, so ranking that sub-block (same relative
+        # order) gives the reference's bits; with no alert live it writes
+        # only the sentinel row — the reference's lax.cond no-op
+        ab = lambda a: a.reshape(L, 4 * WWl, *a.shape[1:])[:, :Al].reshape(
+            L * Al, *a.shape[1:])
+        att_a, dro_a = self._append_rows(
+            "awheel", st.acnt, ab(grows), ab(glane), ab(gslot),
+            ab(glive & galert), Al)
+
+        # ---- accounting (per lane): every first-entry live window row is
+        # one consumed network delivery; continuations were already charged
+        n_defer_l = (loser | spill).reshape(L, WWl).sum(1, dtype=I32)
+        n_cont_l = (live & w_cont).reshape(L, WWl).sum(1, dtype=I32)
+        st.messages_sent.add_(n_alert + n_data - n_cont_l)
+        st.deferred.add_(n_late_new + n_defer_l)
+        st.dropped.add_(dro_d + dro_a)
+        st.enq.add_(att_d + att_a)
+        st.ret.add_(n_alert + n_data)
+        st.t.add_(1)
+        self._t += 1
+
+    # -- public API ----------------------------------------------------------
+
+    @property
+    def t(self) -> int:
+        return self._t
+
+    @property
+    def messages_sent(self) -> int:
+        return int(self._st.messages_sent.sum())
+
+    @property
+    def in_flight(self) -> int:
+        return int(self._st.wcnt.sum()) + int(self._st.acnt.sum())
+
+    @property
+    def dropped(self) -> int:
+        """Messages lost to arena overflow; a run with dropped > 0 is
+        invalid (raise capacity_per_peer)."""
+        return int(self._st.dropped.sum())
+
+    @property
+    def deferred(self) -> int:
+        """Deliveries pushed past their due time (each row counted once)."""
+        return int(self._st.deferred.sum())
+
+    @property
+    def lost_to_fault(self) -> int:
+        return int(self._st.lost.sum())
+
+    @property
+    def deferral_rate(self) -> float:
+        """Cumulative deferral events per consumed network delivery."""
+        m = self.messages_sent
+        return self.deferred / m if m else 0.0
+
+    def check_conservation(self) -> dict:
+        """The wheel's row-conservation invariant: every row ever appended
+        is drained, still live, or accounted dropped. Raises
+        AssertionError on violation; returns the figures."""
+        st = self._st
+        enq, ret = int(st.enq.sum()), int(st.ret.sum())
+        live = self.in_flight
+        dro, lost = int(st.dropped.sum()), int(st.lost.sum())
+        if enq != ret + live + dro + lost:
+            raise AssertionError(
+                f"wheel conservation violated: enqueued={enq} != "
+                f"retired={ret} + live={live} + dropped={dro} + "
+                f"lost_to_fault={lost}")
+        return {"enqueued": enq, "retired": ret, "live": live,
+                "dropped": dro, "lost_to_fault": lost}
+
+    def outputs(self) -> np.ndarray:
+        out = knowledge_outputs(self.problem, self._st.inbox, self._st.x,
+                                self.pad)
+        return out[: self.n].cpu().numpy().astype(np.int64)
+
+    def votes(self) -> np.ndarray:
+        """(n,) scalar data (majority votes)."""
+        return self._st.x[: self.n, 0].cpu().numpy().astype(np.int64)
+
+    def data(self) -> np.ndarray:
+        """(n, D) quantized per-peer data plane."""
+        return self._st.x[: self.n].cpu().numpy().astype(np.int64)
+
+    def set_votes(self, idx: np.ndarray, new_votes: np.ndarray) -> None:
+        """Data-change upcall: set X_self on `idx` and re-run test()."""
+        idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        nd = self.problem.init_state(np.asarray(new_votes)).astype(np.int32)
+        self._st.x[idx_t] = torch.from_numpy(nd).to(self.device)
+        touched = torch.zeros(self.pad, dtype=torch.bool, device=self.device)
+        touched[idx_t] = True
+        self._react(touched)
+
+    def apply_coalesced(self, idx: np.ndarray, new_data: np.ndarray) -> int:
+        """Serve-layer flush: one coalesced batch applied as one batched
+        `set_votes` (one full-width event react). Returns the rows applied."""
+        idx, vals = coalesced_update(idx, new_data, self.n)
+        if idx.size:
+            self.set_votes(idx, vals)
+        return int(idx.size)
+
+    def join(self, addr: int, vote=0) -> int:
+        raise NotImplementedError(CHURN_NOT_PORTED)
+
+    def leave(self, idx: int) -> None:
+        raise NotImplementedError(CHURN_NOT_PORTED)
+
+    def crash(self, idx: int) -> None:
+        raise NotImplementedError(FAULTS_NOT_PORTED)
+
+    def _grow(self, need_n: int) -> None:
+        raise NotImplementedError(CHURN_NOT_PORTED)
+
+    def step(self, cycles: int = 1) -> None:
+        """Advance `cycles` cycles (no host sync inside)."""
+        for _ in range(int(cycles)):
+            self._cycle()
+
+    def run_until_converged(self, truth: int, max_cycles: int = 200_000,
+                            stable_for: int = 1) -> EngineResult:
+        """Run until every peer outputs `truth`, checked on device before
+        each step (one host read of the check per cycle)."""
+        start_msgs = self.messages_sent
+        state = {"stable": 0}
+
+        def probe(budget: int):
+            stable, done, used = state["stable"], False, 0
+            while not done and used < budget:
+                conv = bool(self._outputs_match(truth))
+                stable = stable + 1 if conv else 0
+                done = stable >= stable_for
+                if not done:
+                    self._cycle()
+                used += 1
+            state["stable"] = stable
+            return done, used
+
+        return run_convergence_loop(
+            probe, max_cycles,
+            cycles=lambda: self.t,
+            messages=lambda: self.messages_sent - start_msgs,
+            invalid=lambda: float(self.dropped > 0),
+        )
