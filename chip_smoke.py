@@ -7,16 +7,33 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), then, in order:
 
   1. prints the card's name and power limit and the kernel build time;
-  2. holds each wheel kernel against its plain PyTorch version on the card
-     at the n = 1e6 shapes (exact equality), and times kernel and plain;
+  2. holds each kernel against its plain PyTorch version on the card at
+     the n = 1e6 shapes (exact equality), and times kernel and plain: the
+     four wheel kernels (`stage_rows` at row width 8 and at the L2 path's
+     width 9), the mean and L2 forms of `threshold_step` at the drain
+     window (WW rows) and the event react (pad rows), and `majority_step`
+     at pad rows;
   3. runs the engine with its kernels and with their plain versions, both
-     on the card, at n = 4096 for 300 cycles: the full state must be equal;
-  4. the main path at n = 100,000: converge at mu = 0.45, flip the votes to
-     mu = 0.55 through `apply_coalesced`, converge again;
-  5. n = 1,000,000 peers: the init storm and 200 cycles;
-  6. prints one JSON line with every kernel's launches on the main path
-     (phases 4 and 5), its error, times and bound; then a device-time
-     profile of 10 cycles at n = 1e6.
+     on the card, at n = 4096: majority for 300 cycles; mean (tau 0.3)
+     and L2 (tau 1, D 2) through a data flip and 8 churn events 20 cycles
+     apart; majority without the threshold kernel (its event react runs
+     `majority_step`) through the same. The full state must be equal
+     after every stage and every churn event;
+  4. the majority main path at n = 100,000: converge at mu = 0.45, flip
+     the votes to mu = 0.55 through `apply_coalesced`, converge again;
+  5. n = 1,000,000 majority peers: the init storm and 100 cycles, then a
+     device-time profile of 10 cycles;
+  6. mean and L2 at n = 100,000 through the golden-cell script: converge,
+     a full-width data flip through `apply_coalesced`, one join and one
+     leave, converge again;
+  7. L2 at n = 1,000,000: the init storm, then 100 cycles with 16 churn
+     events; then a device-time profile of 10 cycles and of one join;
+  8. checks the launch counts of each driven path, read with the counts
+     reset just before it and read just after (phase 3's run without the
+     threshold kernel, phases 4-5, phases 6-7): every kernel the path
+     runs launched at least once, every other kernel never. Prints one
+     JSON line with every kernel's launches (on its main path, and on
+     each path that runs it), its error, times and bound.
 
 Every phase asserts; the last line is the run's JSON verdict. Exits
 non-zero without printing a result when no CUDA device is present or the
@@ -38,6 +55,7 @@ ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 peak; the int32 work
 # of these kernels is priced at this rate (the data sheet lists no int32
 # ALU rate)
 N_BIG = 1_000_000
+N_MID = 100_000
 SOURCES = {
     "stage_rows": ("src/repro_torch/kernels/csrc/enqueue.cu",
                    "src/repro/kernels/wheel/enqueue.py:52"),
@@ -47,10 +65,38 @@ SOURCES = {
                   "src/repro/kernels/wheel/due_dedup.py:78"),
     "descent_tail": ("src/repro_torch/kernels/csrc/descent.cu",
                      "src/repro/kernels/wheel/descent.py:85"),
+    "threshold_step_mean": ("src/repro_torch/kernels/csrc/threshold_step.cu",
+                            "src/repro/kernels/wheel/threshold_step.py:35"),
+    "threshold_step_l2": ("src/repro_torch/kernels/csrc/threshold_step.cu",
+                          "src/repro/kernels/wheel/threshold_step.py:35"),
+    "majority_step": ("src/repro_torch/kernels/csrc/majority_step.cu",
+                      "src/repro/kernels/majority_step/majority_step.py:45"),
 }
+# the kernels each driven path launches (every other kernel must stay at
+# 0 there), and the path whose count a kernel's entry reports
+PATH_KERNELS = {
+    "majority_no_threshold": {"stage_rows", "due_dedup", "descent_tail",
+                              "majority_step"},
+    "majority": {"stage_rows", "threshold_step", "due_dedup",
+                 "descent_tail"},
+    "mean_l2": {"stage_rows", "due_dedup", "descent_tail",
+                "threshold_step_mean", "threshold_step_l2"},
+}
+MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
+             "due_dedup": "majority", "descent_tail": "majority",
+             "threshold_step_mean": "mean_l2", "threshold_step_l2": "mean_l2",
+             "majority_step": "majority_no_threshold"}
 # integer operations per unit of work, counted from the CUDA sources
 OPS_PER_ROW = {"stage_rows": 1, "threshold_step": 40, "due_dedup": 30,
-               "descent_tail": 60}  # descent: per row-step
+               "descent_tail": 60,  # descent: per row-step
+               "threshold_step_mean": 40, "majority_step": 40}
+
+
+def l2_ops_per_row(dim: int, ndirs: int) -> int:
+    """Float operations of the L2 form per peer: 7 projections (K, and A
+    and K - A per direction) of 2D + 1 operations and 7 sign tests per
+    cover direction, plus the int32 sums (~10 P)."""
+    return ndirs * (7 * (2 * dim + 1) + 7) + 10 * (dim + 1)
 
 
 def log(msg: str) -> None:
@@ -113,9 +159,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(name: str, io_bytes: int, work: int):
+def bound(name: str, io_bytes: int, work: int, ops_per_row=None):
     t_bytes = io_bytes / HBM_BYTES_PER_S
-    t_ops = work * OPS_PER_ROW[name] / ALU_OPS_PER_S
+    t_ops = work * (ops_per_row or OPS_PER_ROW[name]) / ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -148,6 +194,31 @@ def make(n: int, dev, seed: int, mu: float, **kw):
     eng = make_engine("torch", ring, votes, seed=seed + 1, device=dev,
                       capacity_per_peer=8, **kw)
     return eng, votes, rng
+
+
+def problem_data(name: str, n: int, rng, phase: int):
+    """The golden cells' raw data: mean N(-0.6 / +0.6, 0.8); L2 a cloud
+    (sd 0.9) around a mean outside (phase 0) / inside (phase 1) the
+    tau = 1 ball. Phase 1 flips the global decision."""
+    import numpy as np
+
+    if name == "mean":
+        return rng.normal(-0.6 if phase == 0 else 0.6, 0.8, size=n)
+    c = np.array([0.6, -0.8]) * (1.3 if phase == 0 else 0.45)
+    return rng.normal(c, 0.9, size=(n, 2))
+
+
+def make_problem(name: str, problem, n: int, dev, seed: int, **kw):
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+
+    rng = np.random.default_rng(seed)
+    ring = Ring.random(n, 32, seed=seed)
+    eng = make_engine("torch", ring, problem_data(name, n, rng, 0),
+                      seed=seed + 1, device=dev, capacity_per_peer=8,
+                      problem=problem, **kw)
+    return eng, rng
 
 
 # -- phase 2: kernels against their plain versions --------------------------
@@ -201,44 +272,55 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     import numpy as np
     import torch
-    from repro_torch.engine.problems import Majority
+    from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
+    from repro_torch.kernels import majority_step as MS
     from repro_torch.kernels import wheel as W
 
     rng = np.random.default_rng(2026)
     rows = {}
 
-    def check(name, kernel, plain, args, work, piters):
+    def check(name, kernel, plain, args, work, piters, ops_per_row=None,
+              tag="", main=True):
         want = plain(*args)
         got = kernel(*args)
         sync(dev)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
-        assert err == 0, f"{name}: kernel differs from its plain version"
+        assert err == 0, f"{name}{tag}: kernel differs from its plain version"
         io = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got)
         call = time_ms(lambda: kernel(*args), dev, iters)
         pcall = time_ms(lambda: plain(*args), dev, piters, warmup=1)
         ms = device_ms(lambda: kernel(*args), dev, iters)
         pms = device_ms(lambda: plain(*args), dev, piters)
-        b_ms, by = bound(name, io, work)
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                      "bound_ms": b_ms, "bound_by": by, "library_ms": None}
-        log(f"  {name:15s} equal (max_abs_err 0)  device: kernel {ms:.4f} ms,"
-            f" plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by}); per call "
-            f"with launch: kernel {call:.4f} ms, plain {pcall:.4f} ms  "
-            f"[{io / 1e6:.1f} MB moved]")
+        b_ms, by = bound(name, io, work, ops_per_row)
+        fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+               "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+        shapes = rows.setdefault(name, {}).setdefault("shapes", {})
+        shapes[tag.strip() or "main"] = fig
+        if main:
+            rows[name].update(fig)
+        log(f"  {name + tag:15s} equal (max_abs_err 0)  device: kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+            f"per call with launch: kernel {call:.4f} ms, plain {pcall:.4f} "
+            f"ms  [{io / 1e6:.1f} MB moved]")
 
-    # stage_rows: the staged block, lanes * 4 * window_l rows of width 8
+    # stage_rows: the staged block, lanes * 4 * window_l rows, of width 9
+    # (L2 with D = 2, DELIVER_T in column 8) and of width 8 (majority and
+    # mean, column 7; the row the JSON line reports)
     m = sizes["staged"]
-    vals = torch.from_numpy(
-        rng.integers(0, 2**32, (m, 8), dtype=np.uint64).astype(np.int64))
-    mask = torch.from_numpy(rng.random(m) < 0.6)
-    args = (vals.to(dev), torch.from_numpy(rng.random(m) < 0.15).to(dev),
-            (torch.cumsum(mask.long(), 0) - 1).to(dev),
-            torch.from_numpy((rng.permutation(10) + 1).astype(np.int32)).to(dev),
-            0xFFFFFFFF - 4, 7)  # the stamp wraps at 32 bits
-    check("stage_rows", W.stage_rows, W.stage_rows_reference, args,
-          m, max(1, iters // 4))
+    for roww in (9, 8):
+        vals = torch.from_numpy(rng.integers(
+            0, 2**32, (m, roww), dtype=np.uint64).astype(np.int64))
+        mask = torch.from_numpy(rng.random(m) < 0.6)
+        args = (vals.to(dev), torch.from_numpy(rng.random(m) < 0.15).to(dev),
+                (torch.cumsum(mask.long(), 0) - 1).to(dev),
+                torch.from_numpy(
+                    (rng.permutation(10) + 1).astype(np.int32)).to(dev),
+                0xFFFFFFFF - 4, roww - 1)  # the stamp wraps at 32 bits
+        check("stage_rows", W.stage_rows, W.stage_rows_reference, args,
+              m, max(1, iters // 4), tag=f" w{roww}", main=roww == 8)
+        del vals, args
 
     # threshold_step: one row per window row
     ww = sizes["window"]
@@ -249,6 +331,51 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     check("threshold_step", lambda *a: W.threshold_step(prob, *a),
           lambda *a: W.threshold_step_reference(prob, *a), args, ww,
           max(1, iters // 4))
+
+    # the mean and L2 forms: per cycle on the window (WW rows, the row
+    # the JSON line reports) and at every event react (pad rows); a
+    # sixteenth of the mean rows sit at the int32 edges (sums wrap), a
+    # quarter of the L2 rows tie in the argmax
+    pad = sizes["pad"]
+    edges = np.array([-2**31, 2**31 - 1, -1, 0], np.int32)
+
+    def ints(lo, hi, shape, edge_rows=0):
+        a = rng.integers(lo, hi, shape).astype(np.int32)
+        a[:edge_rows] = rng.choice(edges, (edge_rows,) + tuple(shape[1:]))
+        return a
+
+    mean = MeanMonitor(tau=0.3)
+    l2 = L2Thresh(tau=1.0, dim=2, ndirs=16)
+    l2_ops = l2_ops_per_row(2, 16)
+    for n_rows, tag in ((pad, " @pad"), (ww, " @WW")):  # WW: the main row
+        e = n_rows // 16
+        args = tuple(torch.from_numpy(a).to(dev) for a in (
+            ints(-40_000, 40_001, (n_rows, 3, 2), e),
+            ints(-40_000, 40_001, (n_rows, 3, 2), e),
+            ints(-300, 301, (n_rows, 1), e)))
+        check("threshold_step_mean", lambda *a: W.threshold_step(mean, *a),
+              lambda *a: W.threshold_step_reference(mean, *a), args, n_rows,
+              max(1, iters // 4), tag=tag, main=n_rows == ww)
+        ip = ints(-768, 769, (n_rows, 3, 3))
+        op = ints(-768, 769, (n_rows, 3, 3))
+        ip[..., 2] = rng.integers(0, 4, (n_rows, 3))
+        op[..., 2] = rng.integers(0, 4, (n_rows, 3))
+        x = ints(-512, 513, (n_rows, 2))
+        q = n_rows // 4
+        ip[:q, :, :2] = 0
+        x[:q] = 0  # zero vector sums: every half-space ties
+        args = tuple(torch.from_numpy(a).to(dev) for a in (ip, op, x))
+        check("threshold_step_l2", lambda *a: W.threshold_step(l2, *a),
+              lambda *a: W.threshold_step_reference(l2, *a), args, n_rows,
+              max(1, iters // 4), ops_per_row=l2_ops, tag=tag,
+              main=n_rows == ww)
+
+    # majority_step: the event react's (N, 3) planes at pad rows
+    planes = [ints(0, 60, (pad, 3), pad // 16) for _ in range(4)]
+    args = tuple(torch.from_numpy(a).to(dev) for a in (
+        *planes, rng.integers(0, 2, pad).astype(np.int32)))
+    check("majority_step", MS.majority_step, MS.majority_step_reference,
+          args, pad, max(1, iters // 4))
 
     # due_dedup: uniform links, then many rows sharing a link
     nl = sizes["links"]
@@ -283,24 +410,71 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
 
 # -- phase 3: the engine with kernels vs with plain versions ---------------
 
-def phase_parity(dev, n: int, cycles: int) -> None:
+def assert_same_state(a, b, where: str) -> None:
     import numpy as np
     from repro_torch.engine.convert import state_to_numpy
 
+    sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
+    for f in sa:
+        assert np.array_equal(sa[f], sb[f]), f"state field {f} differs {where}"
+
+
+def phase_parity(dev, n: int, cycles: int) -> None:
     a, _, _ = make(n, dev, seed=11, mu=0.45)
     b, _, _ = make(n, dev, seed=11, mu=0.45, wheel_kernels="none")
     for done in range(0, cycles, 50):
         k = min(50, cycles - done)
         a.step(k)
         b.step(k)
-        sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
-        for f in sa:
-            assert np.array_equal(sa[f], sb[f]), \
-                f"state field {f} differs after {done + k} cycles"
+        assert_same_state(a, b, f"after {done + k} cycles")
     assert a.dropped == 0
     log(f"  n={n}: kernels-on and plain engines equal in full state after "
         f"{cycles} cycles (t={a.t}, messages={a.messages_sent}, "
         f"deferred={a.deferred})")
+
+
+def phase_parity_churn(dev, n: int, label: str, build, flip) -> dict:
+    """Kernels-on vs plain engines in lockstep through 60 cycles, a data
+    change (`flip(eng)`), then 8 churn events 20 cycles apart; full state
+    compared after the 60 cycles, after the flip, after each churn event
+    and after the cycles that follow it. Returns the kernels-on engine's
+    launch counts (reset just before it is built; the plain engine
+    launches no kernel)."""
+    import numpy as np
+    from repro_torch.core.churn import random_schedule
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    reset_launches()
+    a, b = build("auto"), build("none")
+    for e in (a, b):
+        e.step(60)
+    assert_same_state(a, b, f"({label}) after 60 cycles")
+    for e in (a, b):
+        flip(e)
+    assert_same_state(a, b, f"({label}) after the data flip")
+    sched = random_schedule(a.ring, 8, seed=13, spacing=20)
+    for i, (op, gap, snap) in enumerate(zip(sched.ops, sched.gaps,
+                                             sched.snaps)):
+        for e in (a, b):
+            if op[0] == "join":
+                e.join(op[1], vote=op[2])
+            else:
+                e.leave(op[1])
+        assert np.array_equal(np.asarray(a.ring.addrs), snap[0].addrs)
+        assert_same_state(a, b, f"({label}) after churn event {i} ({op[0]})")
+        for e in (a, b):
+            e.step(int(gap))
+        assert_same_state(a, b, f"({label}) {gap} cycles after event {i}")
+    sync(dev)
+    counts = launch_counts()
+    assert a.dropped == 0
+    a.check_conservation()
+    joins = sum(op[0] == "join" for op in sched.ops)
+    log(f"  n={n} {label}: kernels-on and plain engines equal in full state "
+        f"after 60 cycles, after a data flip, and after each of 8 churn "
+        f"events ({joins} joins) and the 20 cycles after it (t={a.t}, "
+        f"n={a.n}, messages={a.messages_sent}, deferred={a.deferred})")
+    return counts
 
 
 # -- phases 4 and 5: the main path -------------------------------------------
@@ -355,26 +529,135 @@ def phase_big(dev, n: int, cycles: int):
                  "deferral_rate": eng.deferral_rate}
 
 
-def phase_profile(dev, eng, cycles: int) -> None:
-    """Device time by kernel over a short window of cycles (device-side
-    events only: kernels, copies, memsets)."""
+def phase_problem_converge(dev, name: str, n: int) -> dict:
+    """The golden-cell script at n peers: converge, a full-width data
+    flip through `apply_coalesced`, one join + one leave, converge."""
+    import numpy as np
+    from repro_torch.engine import L2Thresh, MeanMonitor
+
+    prob = (MeanMonitor(tau=0.0, scale=256) if name == "mean"
+            else L2Thresh(tau=1.0, dim=2))
+    eng, rng = make_problem(name, prob, n, dev, seed=21)
+    out = {}
+    for stage in (1, 2, 3):
+        if stage == 2:
+            eng.apply_coalesced(np.arange(n), problem_data(name, n, rng, 1))
+        elif stage == 3:
+            free = np.setdiff1d(np.arange(1, 1 << 16, dtype=np.uint64),
+                                eng.ring.addrs % (1 << 16))
+            eng.join(int(free[3]), vote=problem_data(name, 1, rng, 1)[0])
+            eng.leave(0)
+        truth = prob.global_output(eng.data())
+        sync(dev)
+        t0, c0, m0 = time.perf_counter(), eng.t, eng.messages_sent
+        res = eng.run_until_converged(truth=truth, max_cycles=20_000)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        cyc = eng.t - c0
+        assert res["converged"] == 1.0, f"{name} stage {stage} did not converge"
+        assert eng.dropped == 0, "messages dropped"
+        eng.check_conservation()
+        assert (eng.outputs() == truth).all()
+        msgs = eng.messages_sent - m0
+        out[f"stage{stage}"] = dict(truth=truth, cycles=cyc,
+                                    messages_per_peer=msgs / eng.n,
+                                    cycles_per_s=cyc / dt if dt else 0.0,
+                                    seconds=dt)
+        log(f"  {name} n={eng.n} stage {stage}: converged to {truth} in {cyc} "
+            f"cycles, {msgs / eng.n:.3f} messages/peer, "
+            f"{cyc / dt if dt else 0.0:.1f} cycles/s, dropped 0, "
+            f"conservation holds")
+    return out
+
+
+def phase_big_churn(dev, n: int, events: int, gap: int):
+    """L2 at n peers: the init storm, then `events` churn events `gap`
+    cycles apart (and the cycles to make up 100). Returns the engine and
+    its figures."""
+    from repro_torch.core.churn import random_schedule
+    from repro_torch.engine import L2Thresh
+
+    sync(dev)
+    t0 = time.perf_counter()
+    eng, _ = make_problem("l2", L2Thresh(tau=1.0, dim=2), n, dev, seed=23)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    sched = random_schedule(eng.ring, events, seed=24, spacing=gap)
+    lead = 100 - events * gap
+    t_churn = t_cyc = 0.0
+    t0 = time.perf_counter()
+    eng.step(lead)
+    sync(dev)
+    t_cyc += time.perf_counter() - t0
+    for op, g in zip(sched.ops, sched.gaps):
+        t0 = time.perf_counter()
+        if op[0] == "join":
+            eng.join(op[1], vote=op[2])
+        else:
+            eng.leave(op[1])
+        sync(dev)
+        t1 = time.perf_counter()
+        eng.step(int(g))
+        sync(dev)
+        t_churn += t1 - t0
+        t_cyc += time.perf_counter() - t1
+    assert eng.t == 100, eng.t
+    assert eng.dropped == 0, "messages dropped at n=1e6 (L2)"
+    cons = eng.check_conservation()
+    stats = {"init_s": t_init, "cycles_per_s": 100 / t_cyc,
+             "churn_event_ms": t_churn * 1e3 / events,
+             "deferral_rate": eng.deferral_rate}
+    log(f"  L2 n={n}: init storm {t_init:.2f} s (pad {eng.pad}, wheel "
+        f"{nbytes(eng._st.wheel) / 1e9:.2f} GB at row width {eng.roww}); "
+        f"100 cycles at {100 / t_cyc:.1f} cycles/s with {events} churn "
+        f"events ({t_churn * 1e3 / events:.1f} ms each on the host clock); "
+        f"n now {eng.n}; deferral_rate {eng.deferral_rate:.4f}; in flight "
+        f"{cons['live']}; dropped 0, conservation holds")
+    return eng, stats
+
+
+def device_events(dev, fn):
+    """Run `fn` once under the profiler: (wall seconds, the device-side
+    events by name: kernels, copies, memsets)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    return wall, [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+
+
+def profile_churn_event(dev, eng, addr: int) -> dict:
+    """Device time and wall of one join at `addr` (the event path: row
+    shift, fence and re-lane over the whole wheel, movers, ALERTs)."""
+    wall, ev = device_events(dev, lambda: eng.join(addr, vote=(0.0, 0.0)))
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    launches = sum(e.count for e in ev)
+    log(f"  one join at n={eng.n}: wall {wall * 1e3:.2f} ms profiled, device "
+        f"busy {dev_ms:.2f} ms in {launches} device launches")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:4d}x  "
+            f"{e.key[:90]}")
+    return {"join_wall_ms": wall * 1e3, "join_device_ms": dev_ms,
+            "join_launches": launches}
+
+
+def phase_profile(dev, eng, cycles: int) -> None:
+    """Device time by kernel over a short window of cycles (device-side
+    events only: kernels, copies, memsets)."""
     eng.step(2)
     sync(dev)
     t0 = time.perf_counter()
     eng.step(cycles)
     sync(dev)
     wall0 = time.perf_counter() - t0
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.step(cycles)
-        sync(dev)
-        wall = time.perf_counter() - t0
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    wall, ev = device_events(dev, lambda: eng.step(cycles))
     dev_us = sum(e.self_device_time_total for e in ev)
     launches = sum(e.count for e in ev)
     log(f"  profile of {cycles} cycles at n={eng.n}: wall {wall0 * 1e3 / cycles:.2f}"
@@ -399,6 +682,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, SRC)
+    import numpy as np
     from repro_torch.kernels import _build
     from repro_torch.kernels.wheel import launch_counts, reset_launches
 
@@ -427,7 +711,7 @@ def main() -> int:
     device_ms(lambda: x.mul_(1.0), dev, 20)
     dargs, eng_a = capture_descent(N_BIG, dev, cycles=12)
     sizes = {"staged": eng_a.lanes * 4 * eng_a.window_l,
-             "window": eng_a.lanes * eng_a.window_l,
+             "window": eng_a.lanes * eng_a.window_l, "pad": eng_a.pad,
              "links": eng_a.pad * 3, "descent": (dargs, eng_a)}
     log(f"  shapes: pad {eng_a.pad}, {eng_a.lanes} lanes, lane_budget "
         f"{eng_a.lane_budget}, window_l {eng_a.window_l}, WW {sizes['window']}"
@@ -437,26 +721,73 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 3: engine parity, kernels vs plain versions, on the card")
+    from repro_torch.engine import L2Thresh, MeanMonitor
+
     phase_parity(dev, 4096, 300)
+    n3 = 4096
+    for label, prob in (("mean", MeanMonitor(tau=0.3)),
+                        ("l2", L2Thresh(tau=1.0, dim=2))):
+        phase_parity_churn(
+            dev, n3, label,
+            lambda wk, p=prob, lb=label: make_problem(
+                lb, p, n3, dev, seed=12, wheel_kernels=wk)[0],
+            lambda e, lb=label: e.apply_coalesced(
+                np.arange(n3), problem_data(lb, n3,
+                                            np.random.default_rng(5), 1)))
+    no_thr = ("dedup", "enqueue", "descent")
+    paths = {}
+    paths["majority_no_threshold"] = phase_parity_churn(
+        dev, n3, "majority without the threshold kernel",
+        lambda wk: make(n3, dev, seed=12, mu=0.45,
+                        wheel_kernels=no_thr if wk == "auto" else wk)[0],
+        lambda e: e.apply_coalesced(np.arange(n3),
+                                    votes_at(n3, 0.55,
+                                             np.random.default_rng(5))))
 
-    log("phase 4: main path at n = 100,000")
+    log("phase 4: majority main path at n = 100,000")
     reset_launches()
-    conv = phase_converge(dev, 100_000)
-    log("phase 5: n = 1,000,000 peers")
-    big, big_stats = phase_big(dev, N_BIG, 200)
-    launches = launch_counts()
-    for name, k in launches.items():
-        assert k > 0, f"kernel {name} was not launched on the main path"
+    conv = phase_converge(dev, N_MID)
+    log("phase 5: n = 1,000,000 majority peers")
+    big, big_stats = phase_big(dev, N_BIG, 100)
+    paths["majority"] = launch_counts()
+    phase_profile(dev, big, 10)
+    del big
+    torch.cuda.empty_cache()
 
-    log("phase 6: kernels on the main path (phases 4 and 5)")
+    log("phase 6: mean and L2 at n = 100,000 (the golden-cell script)")
+    reset_launches()
+    conv_p = {name: phase_problem_converge(dev, name, N_MID)
+              for name in ("mean", "l2")}
+    log("phase 7: L2 at n = 1,000,000 with churn")
+    big, big_l2 = phase_big_churn(dev, N_BIG, events=16, gap=6)
+    paths["mean_l2"] = launch_counts()
+    phase_profile(dev, big, 10)
+    free = int(np.setdiff1d(np.arange(1, 1 << 20, dtype=np.uint64),
+                            big.ring.addrs)[7])
+    big_l2.update(profile_churn_event(dev, big, free))
+    assert big.dropped == 0
+    big.check_conservation()
+    del big
+    torch.cuda.empty_cache()
+    for path, counts in paths.items():
+        for name, k in counts.items():
+            if name in PATH_KERNELS[path]:
+                assert k > 0, f"kernel {name} was not launched on path {path}"
+            else:
+                assert k == 0, f"kernel {name} launched on path {path}"
+
+    log("phase 8: kernels on their paths (majority wheel kernels: phases "
+        "4-5; mean/L2: phases 6-7; majority without the threshold kernel: "
+        f"phase 3): {json.dumps(paths)}")
     table = []
     for name, (src, rep) in SOURCES.items():
         table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": rep, "launches": launches[name],
+                      "replaces": rep,
+                      "launches": paths[MAIN_PATH[name]][name],
+                      "launches_by_path": {p: c[name] for p, c in paths.items()
+                                           if name in PATH_KERNELS[p]},
                       **rows[name]})
-    phase_profile(dev, big, 10)
-    del big
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2})}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -1,9 +1,11 @@
-"""The port's cycle engine (first slice: single device, majority).
+"""The port's cycle engine (single device; majority, mean and L2
+problems; Alg. 2 churn).
 
     from repro_torch.core.dht import Ring
     from repro_torch.engine import make_engine
     eng = make_engine("torch", ring, votes, seed=0)   # on the GPU
     res = eng.run_until_converged(truth=1)
+    eng.join(addr, vote=1); eng.leave(0)
 
 `make_engine("torch", ...)` builds a `TorchEngine` (engine.torch_backend)
 on CUDA unless ``device`` names another device; it raises when CUDA is
@@ -14,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 from .base import EngineResult, FaultConfig, coalesced_update
-from .problems import MAJORITY, Majority, ThresholdProblem, get_problem
+from .problems import (MAJORITY, PROBLEMS, L2Thresh, Majority, MeanMonitor,
+                       ThresholdProblem, get_problem)
 
 BACKENDS = ("torch",)
 
@@ -25,10 +28,11 @@ def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
 
     `backend` must be ``"torch"``. ``device=None`` means CUDA. Keyword
     arguments are `TorchEngine`'s: ``capacity_per_peer`` (default 6, as
-    the reference), ``work_budget``, ``problem`` (only majority in this
-    slice: others raise NotImplementedError naming the ROADMAP item) and
-    ``wheel_kernels`` ("auto": the CUDA kernels; "none": their plain
-    versions).
+    the reference), ``work_budget``, ``pad_to``, ``problem`` (an instance,
+    or "majority" / "mean" / "l2"; `votes` is then the raw data the
+    problem quantizes, and the wheel row width is P + 6) and
+    ``wheel_kernels`` ("auto": every CUDA kernel; "none": their plain
+    versions; or a subset of `kernels.wheel.WHEEL_KERNELS`).
     """
     if backend not in BACKENDS:
         raise ValueError(
@@ -49,5 +53,6 @@ def __getattr__(name):
 
 
 __all__ = ["BACKENDS", "DeviceState", "EngineResult", "FaultConfig",
-           "MAJORITY", "Majority", "ThresholdProblem", "TorchEngine",
-           "coalesced_update", "get_problem", "make_engine"]
+           "L2Thresh", "MAJORITY", "Majority", "MeanMonitor", "PROBLEMS",
+           "ThresholdProblem", "TorchEngine", "coalesced_update",
+           "get_problem", "make_engine"]

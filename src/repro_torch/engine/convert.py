@@ -6,7 +6,10 @@ over as ``{k: np.asarray(v) for k, v in jax_eng._st._asdict().items()}``
 — so both engines can start from the same state; the port itself never
 touches jax. uint32 fields become int64 tensors holding the same values;
 `state_to_numpy` converts back to the reference's dtypes, checking that
-every 32-bit field still holds a 32-bit value.
+every 32-bit field still holds a 32-bit value. Shapes pass through as
+they are: the row width of `wheel` / `awheel` (P + 6: 8 for majority and
+mean, 9 for L2 with D = 2) and the payload widths of `inbox` / `out` are
+the problem's, and `TorchEngine._adopt` checks them against its sizing.
 """
 from __future__ import annotations
 

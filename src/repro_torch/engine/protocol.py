@@ -6,8 +6,7 @@ the threshold/violation algebra. Addresses are int64 tensors holding
 d-bit values (`core.addressing`); counters and payloads are int32 and
 wrap as the reference's int32 does (every reduction keeps int32).
 
-The Alg. 2 change-notification rules and the fault plane's
-`suspicion_rules` belong to later slices (churn, faults).
+The fault plane's `suspicion_rules` belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core import addressing as A
-from repro_torch.core.addressing import CW, UP
+from repro_torch.core.addressing import CCW, CW, UP
 
 Tensor = torch.Tensor
 
@@ -90,6 +89,37 @@ def deliver_rules(*, origin: Tensor, dest: Tensor, edge: Tensor,
     new_edge = torch.where(going_up, torch.zeros_like(a_self),
                            torch.where(step_cw, a_self, a_prev))
     return Delivery(accept, drop, new_dest, new_edge, ~going_up)
+
+
+# ---------------------------------------------------------------------------
+# Alg. 2 — tree change notification (ALERT construction)
+# ---------------------------------------------------------------------------
+
+def change_positions(a_im2: Tensor, a_im1: Tensor, a_i: Tensor,
+                     d: int) -> Tuple[Tensor, Tensor]:
+    """(pos_fix, pos_var) of one predecessor change, Alg. 2 verbatim.
+
+    The successor p_i observes its predecessor edge change between
+    `a_im2` and `a_im1` (join: a_im1 appeared; leave: a_im1 departed):
+
+        pos_fix = Pos(a_im2, a_i)                   (the merged segment)
+        pos_var = Pos(a_im1, a_i)   if Pos(a_im2, a_im1) == pos_fix
+                  Pos(a_im2, a_im1) otherwise
+    """
+    pos_fix = A.position_from_segment(a_im2, a_i, d)
+    pos_mid = A.position_from_segment(a_im2, a_im1, d)
+    pos_new = A.position_from_segment(a_im1, a_i, d)
+    return pos_fix, torch.where(pos_mid == pos_fix, pos_new, pos_mid)
+
+
+def alert_plan(pos_fix: Tensor, pos_var: Tensor) -> Tuple[Tensor, Tensor]:
+    """The <= 6 ALERT (position, direction) sends of one change event:
+    each change position in all three directions (structurally missing
+    directions are culled by `send_fields`' valid mask). Returns
+    (pos (6,), dirs (6,))."""
+    pos = torch.stack([pos_fix, pos_fix, pos_fix, pos_var, pos_var, pos_var])
+    dirs = torch.tensor([UP, CW, CCW, UP, CW, CCW], device=pos.device)
+    return pos, dirs
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Device-resident majority-voting engine on PyTorch (single device).
+"""Device-resident threshold engine on PyTorch (single device).
 
-The counterpart of `repro.engine.jax_backend.JaxEngine` for this slice:
-the owner-partitioned delivery wheel, the superstep cycle
+The counterpart of `repro.engine.jax_backend.JaxEngine`: the
+owner-partitioned delivery wheel, the superstep cycle
 (`_cycle` ≙ ``_cycle_impl``), the full-width event react (init storm,
-`set_votes` / `apply_coalesced`), the step and convergence loops, the
-counters and the conservation check. For the same ring, votes, seed and
-sizing, the state after every cycle is bit-identical to
+`set_votes` / `apply_coalesced`), Alg. 2 churn (`join` / `leave`: row
+shift, R3 fence and owner re-laning, movers, routed ALERTs, and the
+re-pad `_grow`), the step and convergence loops, the counters and the
+conservation check, for every problem of `engine.problems` (majority,
+mean, L2). For the same ring, data, seed and sizing, the state after
+every cycle and every join/leave is bit-identical to
 ``JaxEngine(kernel="ref", wheel_kernels="none")``.
 
 How the JAX program maps onto eager PyTorch:
@@ -26,13 +29,19 @@ How the JAX program maps onto eager PyTorch:
     the cycle runs without any host sync. The ``lax.cond`` branches are
     branch-free here with the same bits (see `_cycle`);
   * `run_until_converged` reads the on-device convergence check once per
-    cycle (CUDA graphs and per-chunk syncing are later work).
+    cycle (CUDA graphs and per-chunk syncing are later work);
+  * churn is an event path: `join` / `leave` run on the device without
+    reading it back; only the re-pad `_grow` copies the state to the
+    host and back.
 
-The four delivery-wheel kernels (`kernels.wheel`) are called through
-their wrappers: on CUDA tensors they launch the hand-written CUDA
-kernels; ``wheel_kernels="none"`` selects their plain PyTorch versions
-instead (the parity surface). Churn (`join` / `leave`), the fault plane
-and the mean/L2 problems are later slices and raise here.
+The delivery-wheel kernels (`kernels.wheel`) and `kernels.majority_step`
+are called through their wrappers: on CUDA tensors they launch the
+hand-written CUDA kernels. ``wheel_kernels`` names the enabled subset of
+`WHEEL_KERNELS` ("auto": all; "none": every plain PyTorch version, the
+parity surface); a majority engine whose subset leaves out "threshold"
+runs its event react through the `majority_step` kernel, as the
+reference does. The fault plane (``faults=``, `crash`) is a later slice
+and raises here.
 """
 from __future__ import annotations
 
@@ -46,8 +55,10 @@ from repro_torch.core.simulator import MAX_DELAY, MIN_DELAY
 from repro_torch.engine import protocol as P
 from repro_torch.engine.base import (EngineResult, coalesced_update,
                                      run_convergence_loop)
-from repro_torch.engine.problems import NOT_PORTED, Majority, get_problem
-from repro_torch.kernels.wheel import (descent_reference,
+from repro_torch.engine.problems import Majority, get_problem
+from repro_torch.kernels.majority_step import (majority_step,
+                                               majority_step_reference)
+from repro_torch.kernels.wheel import (WHEEL_KERNELS, descent_reference,
                                        descent_tail, due_dedup,
                                        due_dedup_reference, stage_rows,
                                        stage_rows_reference, threshold_step,
@@ -63,14 +74,13 @@ ORIGIN, DEST, EDGE, HAS_EDGE, PAY0 = range(5)
 CONT = 2   # HAS_EDGE bit 1: the row resumes an internal descent
 LATE = 4   # HAS_EDGE bit 2: the row already missed a drain window once
 NO_ADDR = M32  # padded-ring sentinel: the row is vacant
+NO_MSG = M32   # DELIVER_T sentinel: the row is dead (fenced)
 
 SLOTS = MAX_DELAY + 1   # delivery-wheel slots
 NPERM = 16              # per-cycle delay permutations kept in the state
 ALERT_W = 64            # ALERT side-wheel row baseline
 MAX_LANES = 8           # owner-lane count cap
 
-CHURN_NOT_PORTED = ("Alg. 2 churn (join/leave/_grow) is not ported yet "
-                    "(ROADMAP.md, queue A: 'Alg. 2 churn')")
 FAULTS_NOT_PORTED = ("the fault plane is not ported yet "
                      "(ROADMAP.md, queue A: 'Fault plane')")
 
@@ -206,34 +216,45 @@ def resolve_device(device) -> torch.device:
 
 
 class TorchEngine:
-    """Device-backed majority engine (the `MajorityEngine` API of
-    `repro.engine.base`, minus churn and faults in this slice)."""
+    """Device-backed threshold engine (the `MajorityEngine` API of
+    `repro.engine.base`, minus the fault plane)."""
 
     backend = "torch"
 
     def __init__(self, ring, votes: Optional[np.ndarray], seed: int = 0,
                  capacity_per_peer: int = 6, work_budget: int = 0,
-                 problem=None, wheel_kernels="auto", faults=None,
-                 device="cuda", _state: Optional[DeviceState] = None):
+                 pad_to: int = 0, problem=None, wheel_kernels="auto",
+                 faults=None, device="cuda",
+                 _state: Optional[DeviceState] = None):
         if faults is not None:
             raise NotImplementedError(FAULTS_NOT_PORTED)
         if ring.d > 32:
             raise ValueError(
                 f"torch engine needs d <= 32 (32-bit addresses), got d={ring.d}")
         self.problem = get_problem(problem)
-        if not isinstance(self.problem, Majority):
-            raise NotImplementedError(NOT_PORTED)
         self.device = resolve_device(device)
-        if wheel_kernels not in ("auto", "none"):
-            raise ValueError(
-                f"wheel_kernels must be 'auto' or 'none', got {wheel_kernels!r}")
-        # the kernel wrappers (the CUDA kernels on CUDA tensors), or with
-        # "none" their plain versions — the parity surface on the card
-        on = wheel_kernels == "auto"
-        self._stage = stage_rows if on else stage_rows_reference
-        self._dedup = due_dedup if on else due_dedup_reference
-        self._descent = descent_tail if on else descent_reference
-        self._thresh = threshold_step if on else threshold_step_reference
+        if wheel_kernels in ("auto", None):
+            wk = WHEEL_KERNELS
+        elif wheel_kernels == "none":
+            wk = ()
+        else:
+            wk = tuple(wheel_kernels)
+        bad = set(wk) - set(WHEEL_KERNELS)
+        if bad:
+            raise ValueError(f"unknown wheel kernels {sorted(bad)}; "
+                             f"pick from {WHEEL_KERNELS}")
+        # each kernel's wrapper (its CUDA kernel on CUDA tensors) where
+        # enabled, else its plain version — "none" is the parity surface
+        pick = lambda name, kern, plain: kern if name in wk else plain
+        self._stage = pick("enqueue", stage_rows, stage_rows_reference)
+        self._dedup = pick("dedup", due_dedup, due_dedup_reference)
+        self._descent = pick("descent", descent_tail, descent_reference)
+        self._thresh = pick("threshold", threshold_step,
+                            threshold_step_reference)
+        # the majority event react without the threshold kernel
+        self._majority_react = (isinstance(self.problem, Majority)
+                                and "threshold" not in wk)
+        self._majority = majority_step if wk else majority_step_reference
         self.pw = int(self.problem.payload_width)
         self.dw = int(self.problem.data_width)
         self._SEQ = PAY0 + self.pw
@@ -244,7 +265,10 @@ class TorchEngine:
         self.d = int(ring.d)
         self._cpp = int(capacity_per_peer)
         self._wb_req = int(work_budget)
-        self.pad = _next_pow2(max(self.n + max(8, self.n // 8), 64))
+        self.pad = int(pad_to) or _next_pow2(max(self.n + max(8, self.n // 8),
+                                                 64))
+        if self.pad < self.n:
+            raise ValueError(f"pad_to={pad_to} below ring size {self.n}")
         self._size_tables()
         self._plane = PeerPlane(self)
         if _state is not None:
@@ -260,7 +284,7 @@ class TorchEngine:
         """Resume from a state (a `DeviceState`, or the reference engine's
         state as a dict of numpy arrays, see `engine.convert`). `sizing`
         must match the engine that produced it (capacity_per_peer,
-        work_budget); the RNG material is the state's own,
+        work_budget, pad_to); the RNG material is the state's own,
         so `seed` changes nothing."""
         from repro_torch.engine.convert import state_from_numpy
 
@@ -283,6 +307,7 @@ class TorchEngine:
         self.lane_width = max(self.lane_cap, self.lane_budget) + self.lane_budget
         self.window_l = self.lane_alert_w + self.lane_budget
         self.narrow_l = max(self.lane_alert_w + 8, self.window_l // 8)
+        self.mig_w = max(32, self.lane_cap // 4)  # churn re-lane rows/lane
 
     def _initial_state(self, ring, votes: np.ndarray, seed: int) -> DeviceState:
         """Fresh state for (ring, votes, seed), before the init react; the
@@ -426,6 +451,23 @@ class TorchEngine:
         return self._thresh(self.problem, in_pay.contiguous(),
                             out_pay.contiguous(), x.contiguous())
 
+    def _test_phase(self):
+        """Full-width threshold rules of the event react: the
+        `majority_step` planes for a majority engine without the
+        threshold kernel, `_rules` otherwise. Returns (viol (pd,3),
+        pay (pd,3,P))."""
+        st, pd, pw = self._st, self.pad, self.pw
+        if self._majority_react:
+            plane = lambda a: a.reshape(pd, NDIR).contiguous()
+            viol, _, po, pt = self._majority(
+                plane(st.inbox[:, 0]), plane(st.inbox[:, 1]),
+                st.out[:, 0:3].contiguous(), st.out[:, 3:6].contiguous(),
+                st.x[:, 0].contiguous())
+            return viol, torch.stack([po, pt], dim=-1)
+        in_pay = st.inbox[:, :pw].reshape(pd, NDIR, pw)
+        viol, _, pay = self._rules(in_pay, self._out_pay(st.out), st.x)
+        return viol, pay
+
     def _outputs_match(self, truth: int) -> torch.Tensor:
         """The threshold convergence predicate, on device (0-d bool)."""
         st = self._st
@@ -435,19 +477,26 @@ class TorchEngine:
 
     # -- event path (full-width react, ranked append, hashed delays) --------
 
-    def _enqueue_events(self, cand, origin, dest, edge, has_edge, pay, seq):
+    def _enqueue_events(self, cand, origin, dest, edge, has_edge, pay, seq,
+                        alert: bool = False):
         """Append the `cand` rows of an event to the wheel of each DEST
-        owner's lane, due after a per-row hashed delay."""
+        owner's lane, due after a per-row hashed delay; ALERT rows go to
+        the side-wheel, due immediately."""
         st = self._st
         m = cand.shape[0]
-        rix = torch.arange(m, device=self.device)
-        due = self._t + hash_delay(rix, self._t + self._evt, self._salt)
+        if alert:
+            due = torch.full((m,), self._t, dtype=I32, device=self.device)
+        else:
+            rix = torch.arange(m, device=self.device)
+            due = self._t + hash_delay(rix, self._t + self._evt, self._salt)
         rows = torch.stack(
             [_u32(origin), _u32(dest), _u32(edge), _u32(has_edge)]
             + [_u32(pay[:, c]) for c in range(self.pw)]
             + [_u32(seq), _u32(due)], dim=1)
-        att, dro = self._append_rows("wheel", st.wcnt, rows, self._lane_of(dest),
-                                     due.long() % SLOTS, cand, self.lane_cap)
+        name, cnt, cap = (("awheel", st.acnt, self.lane_alert_w) if alert
+                          else ("wheel", st.wcnt, self.lane_cap))
+        att, dro = self._append_rows(name, cnt, rows, self._lane_of(dest),
+                                     due.long() % SLOTS, cand, cap)
         st.enq.add_(att)
         st.dropped.add_(dro)
         st.evt_ctr.add_(1)
@@ -457,8 +506,7 @@ class TorchEngine:
         """Threshold test() + Send(v) for all `touched` peers (full-width
         event path: initialization and data changes)."""
         st, pd, pw = self._st, self.pad, self.pw
-        in_pay = st.inbox[:, :pw].reshape(pd, NDIR, pw)
-        viol, _, pay = self._rules(in_pay, self._out_pay(st.out), st.x)
+        viol, pay = self._test_phase()
         eff = viol & touched[:, None]
         seq = st.out[:, NDIR * pw] + eff.any(1).to(I32)
         new_pay = torch.where(eff[..., None], pay, self._out_pay(st.out))
@@ -471,6 +519,254 @@ class TorchEngine:
             (eff & valid).reshape(-1), origin.reshape(-1), dest.reshape(-1),
             edge.reshape(-1), has_edge.reshape(-1), pay.reshape(-1, pw),
             bc(seq).reshape(-1))
+
+    # -- churn (Alg. 2) ------------------------------------------------------
+
+    def _links(self, rows: torch.Tensor) -> torch.Tensor:
+        """(r, NDIR) flat link indices of peer rows `rows`."""
+        return rows[:, None] * NDIR + torch.arange(NDIR, device=self.device)
+
+    def _shift_peer_rows(self, src: torch.Tensor) -> None:
+        """Gather-shift every peer-indexed table by the source map `src`
+        (join/leave row recompaction), in place."""
+        st = self._st
+        link_src = self._links(src).reshape(-1)
+        for name, idx in (("x", src), ("out", src), ("inbox", link_src),
+                          ("addrs", src), ("dead", src), ("heard", link_src),
+                          ("probed", link_src)):
+            a = getattr(st, name)
+            a.copy_(a[idx])
+
+    def _ring_views(self) -> None:
+        """Recompute prev/pos from the padded address table (vacant rows
+        hold garbage that owner lookups never reach)."""
+        st = self._st
+        idx = torch.arange(self.pad, device=self.device)
+        st.prev.copy_(st.addrs[(idx - 1) % self.n])
+        st.pos.copy_(A.position_from_segment(st.prev, st.addrs, self.d))
+
+    def _join(self, addr: int, data: np.ndarray, k: int) -> None:
+        """Insert a peer row at `k` (gather-shift of the sorted prefix +
+        one row write; `data` is the joiner's (D,) data), then run the
+        churn tail."""
+        st, dev = self._st, self.device
+        idx = torch.arange(self.pad, device=dev)
+        self._shift_peer_rows(torch.where(idx <= k, idx, idx - 1))
+        lk = k * NDIR + torch.arange(NDIR, device=dev)
+        st.addrs[k] = addr
+        st.x[k] = torch.from_numpy(data.astype(np.int32)).to(dev)
+        st.inbox[lk] = 0
+        st.out[k] = 0
+        st.dead[k] = False
+        # the joiner starts with fresh detector stamps
+        st.heard[lk] = self._t
+        st.probed[lk] = self._t
+        st.n_live.add_(1)
+        self.n += 1
+        self._ring_views()
+        n = self.n
+        self._churn_tail(st.addrs[(k - 1) % n].clone(), st.addrs[k].clone(),
+                         st.addrs[(k + 1) % n].clone())
+
+    def _leave(self, k: int) -> None:
+        """Delete peer row `k` (gather-shift left + sentinel the vacated
+        row), then run the churn tail."""
+        st, dev, nb = self._st, self.device, self.n
+        a_im1 = st.addrs[k].clone()
+        a_im2 = st.addrs[(k - 1) % nb].clone()
+        a_i = st.addrs[(k + 1) % nb].clone()
+        idx = torch.arange(self.pad, device=dev)
+        self._shift_peer_rows(torch.clamp(torch.where(idx < k, idx, idx + 1),
+                                          max=self.pad - 1))
+        last = nb - 1  # the vacated row after the shift
+        ll = last * NDIR + torch.arange(NDIR, device=dev)
+        st.addrs[last] = NO_ADDR
+        st.x[last] = 0
+        st.inbox[ll] = 0
+        st.out[last] = 0
+        st.dead[last] = False
+        st.heard[ll] = 0
+        st.probed[ll] = 0
+        st.n_live.sub_(1)
+        self.n = last
+        self._ring_views()
+        self._churn_tail(a_im2, a_im1, a_i)
+
+    def _fence_and_migrate(self, pos_fix: torch.Tensor,
+                           pos_var: torch.Tensor) -> None:
+        """R3 fence + owner re-laning after a membership change.
+
+        Each lane sweeps its arenas once, slot-major: data rows whose
+        origin is a change position drop (the fence; the ALERT side-wheel
+        is never origin-fenced), rows still owned are compacted in place
+        per slot, and rows whose DEST owner moved to another lane are
+        collected (first `mig_w` per lane) and re-appended to their owner
+        lane. Removed rows are retired; migrated rows re-enter through
+        `enq`; a migration overflow counts in both `enq` and `dropped`.
+        """
+        st, dev = self._st, self.device
+        L, roww, MW = self.lanes, self.roww, self.mig_w
+        lanes = torch.arange(L, device=dev)
+
+        def sweep(buf, cnt, fence: bool):
+            width = buf.shape[2]
+            live = (torch.arange(width, device=dev)[None, None, :]
+                    < cnt[:, :, None]).reshape(L, SLOTS * width)
+            rows = buf.reshape(L, SLOTS * width, roww)
+            ok = rows[:, :, self._DT] != NO_MSG
+            if fence:
+                ok &= ((rows[:, :, ORIGIN] != pos_fix)
+                       & (rows[:, :, ORIGIN] != pos_var))
+            inlane = (self._lane_of(rows[:, :, DEST].reshape(-1)).reshape(L, -1)
+                      == lanes[:, None])
+            keep = (live & ok & inlane).reshape(L, SLOTS, width)
+            move = live & ok & ~inlane
+            kidx, kcum = self._compact(keep, width)
+            kidx = torch.where(kidx < width, kidx, 0)
+            kept = torch.gather(buf, 2, kidx[..., None].expand(
+                L, SLOTS, width, roww))
+            nc = kcum[..., -1].to(I32)
+            midx, mcum = self._compact(move, MW)
+            mok = midx < SLOTS * width
+            mig = torch.gather(rows, 1, torch.where(mok, midx, 0)[..., None]
+                               .expand(L, MW, roww))
+            lost = torch.clamp(mcum[:, -1] - MW, min=0).to(I32)
+            removed = cnt.sum(1, dtype=I32) - nc.sum(1, dtype=I32)
+            buf.copy_(kept)
+            cnt.copy_(nc)
+            return mig.reshape(L * MW, roww), mok.reshape(-1), removed, lost
+
+        def relane(name, cnt, cap, mig, mok):
+            lane = self._lane_of(mig[:, DEST])
+            slot = _i32(mig[:, self._DT]).long() % SLOTS
+            return self._append_rows(name, cnt, mig, lane, slot, mok, cap)
+
+        mig_d, mok_d, rem_d, lost_d = sweep(st.wheel, st.wcnt, True)
+        mig_a, mok_a, rem_a, lost_a = sweep(st.awheel, st.acnt, False)
+        att_d, dro_d = relane("wheel", st.wcnt, self.lane_cap, mig_d, mok_d)
+        att_a, dro_a = relane("awheel", st.acnt, self.lane_alert_w, mig_a,
+                              mok_a)
+        st.ret.add_(rem_d + rem_a)
+        st.enq.add_(att_d + att_a + lost_d + lost_a)
+        st.dropped.add_(dro_d + dro_a + lost_d + lost_a)
+
+    def _churn_tail(self, a_im2, a_im1, a_i) -> None:
+        """Alg. 2 after the row change (the reference's `_churn_tail`):
+
+        1. fence + re-lane — `_fence_and_migrate`;
+        2. movers — peers whose position after the change IS pos_fix or
+           pos_var — zero their whole X_in and Send in every direction;
+        3. the <= 6 routed ALERT rows go into the side-wheel, due now; the
+           cycle delivers them through the Alg. 1 router and an accepted
+           ALERT zeroes its link and forces Send.
+        """
+        st, pd, pw, d, dev = self._st, self.pad, self.pw, self.d, self.device
+        pos_fix, pos_var = P.change_positions(a_im2, a_im1, a_i, d)
+        self._fence_and_migrate(pos_fix, pos_var)
+
+        cp = torch.stack([pos_fix, pos_var])
+        own = self._owner_of(cp)
+        mover_rows = torch.where(st.pos[own] == cp, own, pd)
+        mlinks = self._links(mover_rows).reshape(-1)
+        self._plane.put_link("inbox", torch.clamp(mlinks, max=pd * NDIR),
+                             torch.zeros((2 * NDIR, pw + 1), dtype=I32,
+                                         device=dev))
+        mv = mover_rows < pd
+        mp = torch.where(mv, mover_rows, 0)
+        # a mover's X_in is now zero, so its knowledge is K = [x, 1] (rows
+        # with ~mv only ever reach the sentinel rows)
+        k = torch.cat([st.x[mp], torch.ones((2, 1), dtype=I32, device=dev)],
+                      dim=-1)
+        pay = k[:, None, :].expand(2, NDIR, pw)
+        seq2 = st.out[mp][:, NDIR * pw] + 1
+        self._plane.put_peer("out", torch.where(mv, mp, pd),
+                             self._pack_out(pay, seq2))
+        dirs2 = torch.arange(NDIR, device=dev).expand(2, NDIR)
+        bc2 = lambda a: a[:, None].expand(2, NDIR)
+        valid, origin, dest, edge, has_edge = P.send_fields(
+            bc2(st.pos[mp]), dirs2, bc2(st.addrs[mp]), bc2(st.prev[mp]), d)
+        self._enqueue_events(
+            (valid & bc2(mv)).reshape(-1), origin.reshape(-1),
+            dest.reshape(-1), edge.reshape(-1), has_edge.reshape(-1),
+            pay.reshape(-1, pw), bc2(seq2).reshape(-1))
+
+        ap, adirs = P.alert_plan(pos_fix, pos_var)
+        aown = self._owner_of(ap)
+        valid, origin, dest, edge, has_edge = P.send_fields(
+            ap, adirs, st.addrs[aown], st.prev[aown], d)
+        zero = torch.zeros(6, dtype=I64, device=dev)
+        self._enqueue_events(valid, origin, dest, edge, has_edge,
+                             zero[:, None].expand(6, pw), zero, alert=True)
+
+    def _grow(self, need_n: int) -> None:
+        """Re-pad every table one size up (host-side, as the reference):
+        the lane count and boundaries move with the pad, so every live
+        wheel row is re-placed in the lane owning its DEST under the new
+        tables (stable (lane, slot, position) order, capped like an
+        append; a truncated row counts as dropped). Per-lane counters
+        collapse into lane 0."""
+        from repro_torch.engine.convert import state_from_numpy, state_to_numpy
+
+        host = state_to_numpy(self._st)
+        old_pad = self.pad
+        self.pad = _next_pow2(need_n + max(8, need_n // 8))
+        self._size_tables()
+        pr = self.pad - old_pad
+
+        def pad_rows(a, fill=0):
+            return np.concatenate([a, np.full((pr,) + a.shape[1:], fill,
+                                              a.dtype)])
+
+        addrs = pad_rows(host["addrs"], NO_ADDR)
+        n_live = int(host["n_live"])
+
+        def collect(buf, cnt):
+            out = [buf[l, s, : cnt[l, s]]
+                   for l in range(buf.shape[0]) for s in range(SLOTS)]
+            return np.concatenate(out)
+
+        def place(rows, cap, width):
+            buf = np.zeros((self.lanes, SLOTS, width, self.roww), np.uint32)
+            cnt = np.zeros((self.lanes, SLOTS), np.int32)
+            lost = 0
+            if rows.shape[0]:
+                own = (np.searchsorted(addrs, rows[:, DEST], side="left")
+                       % n_live)
+                g = ((own // self.lane_rows) * SLOTS
+                     + rows[:, self._DT].astype(np.int64) % SLOTS)
+                order = np.argsort(g, kind="stable")
+                gs = g[order]
+                rank = np.arange(len(gs)) - np.searchsorted(gs, gs, "left")
+                ok = rank < cap
+                li, si = gs[ok] // SLOTS, gs[ok] % SLOTS
+                buf[li, si, rank[ok]] = rows[order][ok]
+                np.add.at(cnt, (li, si), 1)
+                lost = int((~ok).sum())
+            return buf, cnt, lost
+
+        wheel, wcnt, lost_w = place(collect(host["wheel"], host["wcnt"]),
+                                    self.lane_cap, self.lane_width)
+        awheel, acnt, lost_a = place(collect(host["awheel"], host["acnt"]),
+                                     self.lane_alert_w, self.lane_alert_w)
+
+        def lane0(v, extra=0):
+            a = np.zeros(self.lanes, np.int32)
+            a[0] = int(v.sum()) + extra
+            return a
+
+        links = lambda a: np.concatenate([a, np.zeros((pr * NDIR,)
+                                                       + a.shape[1:], a.dtype)])
+        new = dict(host, x=pad_rows(host["x"]), inbox=links(host["inbox"]),
+                   out=pad_rows(host["out"]), addrs=addrs,
+                   prev=pad_rows(host["prev"]), pos=pad_rows(host["pos"]),
+                   wheel=wheel, wcnt=wcnt, awheel=awheel, acnt=acnt,
+                   messages_sent=lane0(host["messages_sent"]),
+                   dropped=lane0(host["dropped"], lost_w + lost_a),
+                   deferred=lane0(host["deferred"]), enq=lane0(host["enq"]),
+                   ret=lane0(host["ret"]), dead=pad_rows(host["dead"]),
+                   heard=links(host["heard"]), probed=links(host["probed"]),
+                   lost=lane0(host["lost"]))
+        self._adopt(state_from_numpy(new, device=self.device))
 
     # -- the cycle -----------------------------------------------------------
 
@@ -761,8 +1057,9 @@ class TorchEngine:
         return out[: self.n].cpu().numpy().astype(np.int64)
 
     def votes(self) -> np.ndarray:
-        """(n,) scalar data (majority votes)."""
-        return self._st.x[: self.n, 0].cpu().numpy().astype(np.int64)
+        """(n,) scalar data (majority votes); (n, D) when D > 1."""
+        x = self._st.x[: self.n].cpu().numpy().astype(np.int64)
+        return x[:, 0] if self.dw == 1 else x
 
     def data(self) -> np.ndarray:
         """(n, D) quantized per-peer data plane."""
@@ -786,16 +1083,28 @@ class TorchEngine:
         return int(idx.size)
 
     def join(self, addr: int, vote=0) -> int:
-        raise NotImplementedError(CHURN_NOT_PORTED)
+        """Membership upcall: a peer joins at `addr` (Alg. 2) with scalar
+        data or a (D,) vector in raw units; returns its row. Outgrowing
+        the padded tables re-pads them first (`_grow`)."""
+        ring_after, k = self.ring.join(int(addr))
+        if ring_after.n > self.pad:
+            self._grow(ring_after.n)
+        self._join(int(addr), self.problem.peer_data(vote), k)
+        self.ring = ring_after
+        return k
 
     def leave(self, idx: int) -> None:
-        raise NotImplementedError(CHURN_NOT_PORTED)
+        """Membership upcall: peer `idx` departs (Alg. 2)."""
+        if self.n <= 1:
+            raise ValueError("cannot leave the last peer")
+        if not 0 <= idx < self.n:
+            raise IndexError(f"peer index {idx} out of range [0, {self.n})")
+        ring_before = self.ring
+        self._leave(int(idx))
+        self.ring = ring_before.leave(idx)
 
     def crash(self, idx: int) -> None:
         raise NotImplementedError(FAULTS_NOT_PORTED)
-
-    def _grow(self, need_n: int) -> None:
-        raise NotImplementedError(CHURN_NOT_PORTED)
 
     def step(self, cycles: int = 1) -> None:
         """Advance `cycles` cycles (no host sync inside)."""

@@ -1,36 +1,50 @@
-// threshold_step: the fused Alg. 3 test/Send step for the majority problem.
+// threshold_step: the fused Alg. 3 test/Send step, one kernel per problem.
 //
 // Replaces the Pallas kernel threshold_step_kernel
-// (src/repro/kernels/wheel/threshold_step.py:35) on the majority problem
-// (payload width P = 2: ones, total; data width D = 1). Semantics: the
-// plain version protocol.threshold_rules with Majority.test
-// (repro_torch/engine/problems.py).
+// (src/repro/kernels/wheel/threshold_step.py:35), which traces any
+// problem's test inside its body; here each problem the port ships has its
+// own kernel. Semantics: the plain version protocol.threshold_rules with
+// the problem's test (repro_torch/engine/problems.py).
 //
 // Per peer: knowledge K = sum_v X_in[v] + [x, 1]; agreement A = X_in + X_out;
-// margin m(p) = 2 p.ones - p.total; violation on direction v when m(A) and
-// m(K - A) disagree in sign; output m(K) >= 0; Send payload K - X_in.
-// int32 arithmetic wraps as the reference's int32 does (computed in
-// uint32, compared signed).
+// violation on direction v when the problem's margins of A and K - A
+// disagree in sign; output margin(K) >= 0; Send payload K - X_in. Payload
+// arithmetic wraps as the reference's int32 does (computed in uint32,
+// compared signed).
 //
-// Bound on the H100: bytes (52 bytes in, 31 out per peer, ~30 integer
-// operations). Design: one thread per peer, elementwise; each thread
-// reads its 6-int in/out rows (24 contiguous bytes) once.
+//   * majority (P = 2): margin = 2 ones - total;
+//   * mean (P = 2):     margin = sum q - T count (T passed in);
+//   * L2 (P = D + 1):   f_m(p) = <p[:D], u_m> - Tf p[D] over the M cover
+//     directions u_m (an (M, D) float32 input, staged in shared memory);
+//     margin = max_m f_m. K outside (margin(K) >= 0): the violation of the
+//     argmax half-space (first maximum, strict >, as numpy/torch argmax);
+//     K inside: the OR over all M. f_m keeps the reference's unrolled
+//     float32 order p0 u0, + pj uj, - Tf c with __fmul_rn / __fadd_rn /
+//     __fsub_rn, so nvcc cannot contract it into FMAs, and int32 -> float32
+//     rounds to nearest (__int2float_rn), as numpy and XLA do.
+//
+// Bound on the H100: bytes for all three (majority/mean: 52 bytes in and
+// 31 out per peer for ~30 integer operations; L2 at D = 2, M = 16: 80 bytes
+// in, 43 out, ~600 float operations). Design: one thread per peer,
+// elementwise; each thread reads its in/out rows (contiguous) once.
 #include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ int32_t margin(uint32_t ones, uint32_t total) {
-  return static_cast<int32_t>(2u * ones - total);
-}
-
-__global__ void majority_threshold_kernel(const int32_t* __restrict__ in_pay,
-                                          const int32_t* __restrict__ out_pay,
-                                          const int32_t* __restrict__ x,
-                                          int64_t n, bool* __restrict__ viol,
-                                          int32_t* __restrict__ out,
-                                          int32_t* __restrict__ pay) {
+// Linear problems with P = 2: margin(q, c) = a q - b c (majority: a = 2,
+// b = 1; mean: a = 1, b = T), all in uint32.
+__global__ void linear_threshold_kernel(const int32_t* __restrict__ in_pay,
+                                        const int32_t* __restrict__ out_pay,
+                                        const int32_t* __restrict__ x,
+                                        uint32_t a, uint32_t b, int64_t n,
+                                        bool* __restrict__ viol,
+                                        int32_t* __restrict__ out,
+                                        int32_t* __restrict__ pay) {
   const int64_t i = rt::global_index();
   if (i >= n) return;
+  auto margin = [a, b](uint32_t q, uint32_t c) {
+    return static_cast<int32_t>(a * q - b * c);
+  };
   uint32_t ip[6], op[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
@@ -52,19 +66,163 @@ __global__ void majority_threshold_kernel(const int32_t* __restrict__ in_pay,
   out[i] = margin(k1, k2) >= 0 ? 1 : 0;
 }
 
-}  // namespace
+__device__ __forceinline__ float to_f32(uint32_t v) {
+  return __int2float_rn(static_cast<int>(v));
+}
 
-RT_EXPORT int rt_threshold_step_majority(const void* in_pay,
-                                         const void* out_pay, const void* x,
-                                         int64_t n, void* viol, void* out,
-                                         void* pay, void* stream) {
+// f_m(p) for one direction u (D floats) in the reference's op order.
+template <int D>
+__device__ __forceinline__ float project(const float (&p)[D + 1],
+                                         const float* u, float tf) {
+  float acc = __fmul_rn(p[0], u[0]);
+#pragma unroll
+  for (int j = 1; j < D; ++j) acc = __fadd_rn(acc, __fmul_rn(p[j], u[j]));
+  return __fsub_rn(acc, __fmul_rn(tf, p[D]));
+}
+
+template <int D>
+__global__ void l2_threshold_kernel(const int32_t* __restrict__ in_pay,
+                                    const int32_t* __restrict__ out_pay,
+                                    const int32_t* __restrict__ x,
+                                    const float* __restrict__ cover, int m_dirs,
+                                    float tf, int64_t n,
+                                    bool* __restrict__ viol,
+                                    int32_t* __restrict__ out,
+                                    int32_t* __restrict__ pay) {
+  constexpr int P = D + 1;
+  extern __shared__ float su[];  // (M, D) cover
+  for (int j = threadIdx.x; j < m_dirs * D; j += blockDim.x) su[j] = cover[j];
+  __syncthreads();
+  const int64_t i = rt::global_index();
+  if (i >= n) return;
+
+  uint32_t ip[3][P], k[P];
+  float fk[P], fa[3][P], fka[3][P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    k[j] = j < D ? static_cast<uint32_t>(x[D * i + j]) : 1u;
+  }
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      ip[v][j] = static_cast<uint32_t>(in_pay[(3 * i + v) * P + j]);
+      k[j] += ip[v][j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) fk[j] = to_f32(k[j]);
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const uint32_t ag =
+          ip[v][j] + static_cast<uint32_t>(out_pay[(3 * i + v) * P + j]);
+      fa[v][j] = to_f32(ag);
+      fka[v][j] = to_f32(k[j] - ag);
+    }
+  }
+  // the argmax half-space of K (first maximum wins)
+  float best = project<D>(fk, su, tf);
+  int m_star = 0;
+  for (int m = 1; m < m_dirs; ++m) {
+    const float pk = project<D>(fk, su + m * D, tf);
+    if (pk > best) {
+      best = pk;
+      m_star = m;
+    }
+  }
+  const bool outside = best >= 0.f;
+  bool any[3] = {false, false, false}, sel[3] = {false, false, false};
+  for (int m = 0; m < m_dirs; ++m) {
+    const float* u = su + m * D;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float pa = project<D>(fa[v], u, tf);
+      const float pka = project<D>(fka[v], u, tf);
+      const bool vm = (pa >= 0.f && pka < 0.f) || (pa < 0.f && pka > 0.f);
+      any[v] = any[v] || vm;
+      if (m == m_star) sel[v] = vm;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    viol[3 * i + v] = outside ? sel[v] : any[v];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      pay[(3 * i + v) * P + j] = static_cast<int32_t>(k[j] - ip[v][j]);
+    }
+  }
+  out[i] = outside ? 1 : 0;
+}
+
+template <int D>
+cudaError_t launch_l2(const void* in_pay, const void* out_pay, const void* x,
+                      const void* cover, int m_dirs, float tf, int64_t n,
+                      void* viol, void* out, void* pay, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(m_dirs) * D;
+  l2_threshold_kernel<D><<<rt::blocks_for(n), rt::kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(in_pay), static_cast<const int32_t*>(out_pay),
+      static_cast<const int32_t*>(x), static_cast<const float*>(cover), m_dirs,
+      tf, n, static_cast<bool*>(viol), static_cast<int32_t*>(out),
+      static_cast<int32_t*>(pay));
+  return cudaGetLastError();
+}
+
+int launch_linear(const void* in_pay, const void* out_pay, const void* x,
+                  uint32_t a, uint32_t b, int64_t n, void* viol, void* out,
+                  void* pay, void* stream) {
   if (n > 0) {
-    majority_threshold_kernel<<<rt::blocks_for(n), rt::kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    linear_threshold_kernel<<<rt::blocks_for(n), rt::kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(in_pay),
         static_cast<const int32_t*>(out_pay), static_cast<const int32_t*>(x),
-        n, static_cast<bool*>(viol), static_cast<int32_t*>(out),
+        a, b, n, static_cast<bool*>(viol), static_cast<int32_t*>(out),
         static_cast<int32_t*>(pay));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The linear problems: margin = a q - b c (majority: a = 2, b = 1; mean:
+// a = 1, b = T, its fixed-point threshold). a and b multiply modulo 2^32,
+// as the reference's int32 products wrap.
+RT_EXPORT int rt_threshold_step_linear(const void* in_pay, const void* out_pay,
+                                       const void* x, int32_t a, int32_t b,
+                                       int64_t n, void* viol, void* out,
+                                       void* pay, void* stream) {
+  return launch_linear(in_pay, out_pay, x, static_cast<uint32_t>(a),
+                       static_cast<uint32_t>(b), n, viol, out, pay, stream);
+}
+
+// Returns cudaErrorInvalidValue for a data width without an instantiation
+// (the wrapper admits D <= 8).
+RT_EXPORT int rt_threshold_step_l2(const void* in_pay, const void* out_pay,
+                                   const void* x, const void* cover,
+                                   int32_t m_dirs, int32_t dim, float tf,
+                                   int64_t n, void* viol, void* out, void* pay,
+                                   void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  switch (dim) {
+#define RT_L2_CASE(DD)                                                     \
+  case DD:                                                                 \
+    rc = launch_l2<DD>(in_pay, out_pay, x, cover, m_dirs, tf, n, viol, out, \
+                       pay, s);                                            \
+    break;
+    RT_L2_CASE(1)
+    RT_L2_CASE(2)
+    RT_L2_CASE(3)
+    RT_L2_CASE(4)
+    RT_L2_CASE(5)
+    RT_L2_CASE(6)
+    RT_L2_CASE(7)
+    RT_L2_CASE(8)
+#undef RT_L2_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(rc);
 }

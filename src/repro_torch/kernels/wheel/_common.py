@@ -19,8 +19,12 @@ from repro_torch.kernels._build import library
 
 # launches of each kernel since the last `reset_launches` (the wrapper
 # adds one exactly where it launches its kernel, nowhere else)
+# ("threshold_step" is its majority form; the mean and L2 forms and
+# `kernels.majority_step` count under their own names)
 LAUNCHES: Dict[str, int] = {"stage_rows": 0, "threshold_step": 0,
-                            "due_dedup": 0, "descent_tail": 0}
+                            "due_dedup": 0, "descent_tail": 0,
+                            "threshold_step_mean": 0, "threshold_step_l2": 0,
+                            "majority_step": 0}
 
 
 def reset_launches() -> None:
@@ -80,6 +84,7 @@ def launched(kernel: str, rc: int) -> None:
 P = ctypes.c_void_p  # device pointer / stream argument
 I64 = ctypes.c_int64
 I32 = ctypes.c_int32
+F32 = ctypes.c_float
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -8,21 +8,26 @@ per direction and the output — and the Send payload K - X_in; exactly
 Replaces the Pallas kernel `threshold_step_kernel`
 (src/repro/kernels/wheel/threshold_step.py:35). CUDA source:
 ``kernels/csrc/threshold_step.cu``. The Pallas kernel traces any
-problem's `test` inside its body; the CUDA kernel of this slice covers
-the majority problem (P = 2, D = 1) and raises for any other — the mean
-and L2 forms come with the problem slice. On the H100 it is bound by
-bytes (about 83 bytes per peer for some 30 integer operations): one
-thread per peer, elementwise.
+problem's `test` inside its body; CUDA has one kernel per problem the
+port ships — majority and mean (linear margins, P = 2) and L2 (the
+tangent-half-space cover, P = D + 1, the (M, D) cover in shared memory)
+— and the wrapper raises for any other problem. On the H100 each is
+bound by bytes (one thread per peer, elementwise).
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
 from repro_torch.engine import protocol as proto
-from repro_torch.engine.problems import Majority
-from repro_torch.kernels.wheel._common import (I64, P, bind, check_args,
-                                               launched, on_cuda, ptr,
-                                               stream_of)
+from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
+from repro_torch.kernels.wheel._common import (F32, I32, I64, P, bind,
+                                               check_args, launched, on_cuda,
+                                               ptr, stream_of)
+
+L2_MAX_DIM = 8                 # the CUDA source instantiates D = 1..8
+_SMEM_FLOATS = 48 * 1024 // 4  # static shared-memory budget for the cover
 
 
 def threshold_step_reference(problem, in_pay: torch.Tensor,
@@ -32,32 +37,67 @@ def threshold_step_reference(problem, in_pay: torch.Tensor,
     return proto.threshold_rules(problem, in_pay, out_pay, x)
 
 
-_ARGS = [P, P, P, I64, P, P, P, P]
+# the L2 cover on each device, uploaded once per (problem, device)
+_COVERS: "weakref.WeakKeyDictionary[L2Thresh, dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _cover(problem: L2Thresh, dev: torch.device) -> torch.Tensor:
+    per_dev = _COVERS.setdefault(problem, {})
+    u = per_dev.get(dev)
+    if u is None:
+        u = torch.from_numpy(problem.U).to(dev).contiguous()
+        per_dev[dev] = u
+    return u
+
+
+_ARGS_LINEAR = [P, P, P, I32, I32, I64, P, P, P, P]
+_ARGS_L2 = [P, P, P, P, I32, I32, F32, I64, P, P, P, P]
 
 
 def threshold_step(problem, in_pay: torch.Tensor, out_pay: torch.Tensor,
                    x: torch.Tensor):
-    """The plain version on the CPU; on CUDA the majority kernel, for
-    int32 in_pay/out_pay (N,3,2) and x (N,1)."""
+    """The plain version on the CPU; on CUDA the problem's kernel, for
+    int32 in_pay/out_pay (N,3,P) and x (N,D) (majority, mean: P = 2;
+    L2: P = D + 1, D <= 8)."""
     if not on_cuda(in_pay):
         return threshold_step_reference(problem, in_pay, out_pay, x)
-    if not isinstance(problem, Majority):
+    if not isinstance(problem, (Majority, MeanMonitor, L2Thresh)):
         raise NotImplementedError(
-            f"threshold_step has a CUDA kernel for the majority problem "
-            f"only, not {problem!r} (ROADMAP.md, queue B)")
+            f"threshold_step has CUDA kernels for the majority, mean and "
+            f"L2 problems, not {problem!r}")
     dev = check_args("threshold_step",
                      dict(in_pay=in_pay, out_pay=out_pay, x=x),
                      dict(in_pay=torch.int32, out_pay=torch.int32,
                           x=torch.int32))
-    n = x.shape[0]
-    if in_pay.shape != (n, 3, 2) or out_pay.shape != (n, 3, 2) \
-            or x.shape != (n, 1):
-        raise ValueError("threshold_step: want in_pay/out_pay (N,3,2), x (N,1)")
+    n, dw, pw = x.shape[0], problem.data_width, problem.payload_width
+    if in_pay.shape != (n, 3, pw) or out_pay.shape != (n, 3, pw) \
+            or x.shape != (n, dw):
+        raise ValueError(f"threshold_step: want in_pay/out_pay (N,3,{pw}), "
+                         f"x (N,{dw}) for {problem!r}")
     viol = torch.empty((n, 3), dtype=torch.bool, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    pay = torch.empty((n, 3, 2), dtype=torch.int32, device=dev)
-    fn = bind("threshold_step", "rt_threshold_step_majority", _ARGS)
-    launched("threshold_step", fn(ptr(in_pay), ptr(out_pay), ptr(x), n,
-                                  ptr(viol), ptr(out), ptr(pay),
-                                  stream_of(dev)))
+    pay = torch.empty((n, 3, pw), dtype=torch.int32, device=dev)
+    common = (ptr(in_pay), ptr(out_pay), ptr(x))
+    outs = (ptr(viol), ptr(out), ptr(pay), stream_of(dev))
+    if isinstance(problem, L2Thresh):
+        u = _cover(problem, dev)
+        m = u.shape[0]
+        if not 1 <= dw <= L2_MAX_DIM or m * dw > _SMEM_FLOATS:
+            raise ValueError(
+                f"threshold_step: the L2 kernel takes D <= {L2_MAX_DIM} and "
+                f"M*D <= {_SMEM_FLOATS} cover floats, got D={dw}, M={m}")
+        fn = bind("threshold_step", "rt_threshold_step_l2", _ARGS_L2)
+        launched("threshold_step_l2", fn(*common, ptr(u), m, dw,
+                                         float(problem.Tf), n, *outs))
+    else:  # linear margin a q - b c
+        if isinstance(problem, MeanMonitor):
+            if not -2**31 <= problem.T < 2**31:
+                raise ValueError(
+                    f"threshold_step: mean T={problem.T} exceeds int32")
+            a, b, name = 1, problem.T, "threshold_step_mean"
+        else:
+            a, b, name = 2, 1, "threshold_step"
+        fn = bind("threshold_step", "rt_threshold_step_linear", _ARGS_LINEAR)
+        launched(name, fn(*common, a, b, n, *outs))
     return viol, out, pay

@@ -7,8 +7,10 @@ host that has only the port's dependencies:
 
 Each hand-written kernel is held against its plain PyTorch version on
 the same CUDA inputs at the n = 1e6 shapes of the main path, and the
-engine with its kernels against the engine with their plain versions.
-Every comparison is exact (tolerance 0): the kernels are integer code.
+engine with its kernels against the engine with their plain versions
+(majority, mean and L2, under churn). Every comparison is exact
+(tolerance 0): the kernels are integer code, and the L2 kernel's float32
+margins keep the plain version's operation order.
 """
 from __future__ import annotations
 
@@ -17,10 +19,13 @@ import pytest
 import torch
 
 from repro_torch.core import addressing as A
+from repro_torch.core.churn import random_schedule
 from repro_torch.core.dht import Ring
 from repro_torch.engine import make_engine
 from repro_torch.engine.convert import state_to_numpy
-from repro_torch.engine.problems import Majority
+from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
+from repro_torch.kernels.majority_step import (majority_step,
+                                               majority_step_reference)
 from repro_torch.kernels.wheel import (LAUNCHES, descent_reference,
                                        descent_tail, due_dedup,
                                        due_dedup_reference, launch_counts,
@@ -31,6 +36,9 @@ from repro_torch.kernels.wheel._common import in_segment
 
 WW_1E6 = 262_272          # drain-window rows per cycle at n = 1e6
 NL_1E6 = 3 * 2**21        # per-link plane cells at n = 1e6
+PAD_1E6 = 2**21           # event-react rows at n = 1e6
+I32_EDGES = np.array([-2**31, 2**31 - 1, -2**31 + 1, 2**31 - 2, 0, -1],
+                     np.int32)
 
 
 @pytest.fixture
@@ -61,6 +69,78 @@ def test_threshold_step_kernel_matches_plain(cuda):
     _same(got, want)
 
 
+def _ints(rng, lo, hi, shape, edge_rows=0):
+    """int32 array; its first `edge_rows` rows drawn from the int32 edges."""
+    a = rng.integers(lo, hi, shape).astype(np.int32)
+    a[:edge_rows] = rng.choice(I32_EDGES, (edge_rows,) + tuple(shape[1:]))
+    return a
+
+
+@pytest.mark.parametrize("n", [WW_1E6, PAD_1E6])
+def test_threshold_step_mean_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    e = n // 16  # sums and T * count wrap in int32 on these rows
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        _ints(rng, -40_000, 40_001, (n, 3, 2), e),
+        _ints(rng, -40_000, 40_001, (n, 3, 2), e),
+        _ints(rng, -300, 301, (n, 1), e))]
+    for prob in (MeanMonitor(tau=0.3), MeanMonitor(tau=-1e6)):
+        want = threshold_step_reference(prob, *args)
+        before = LAUNCHES["threshold_step_mean"]
+        got = threshold_step(prob, *args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["threshold_step_mean"] == before + 1
+        _same(got, want)
+
+
+def l2_inputs(rng, n, dim, scale=256):
+    """L2 payloads around the tau = 1 sphere; a quarter of the rows have
+    a zero vector sum and a quarter equal sums on two axes, so the cover's
+    half-spaces tie in the argmax."""
+    in_pay = _ints(rng, -3 * scale, 3 * scale + 1, (n, 3, dim + 1))
+    out_pay = _ints(rng, -3 * scale, 3 * scale + 1, (n, 3, dim + 1))
+    in_pay[..., dim] = rng.integers(0, 4, (n, 3))
+    out_pay[..., dim] = rng.integers(0, 4, (n, 3))
+    x = _ints(rng, -2 * scale, 2 * scale + 1, (n, dim))
+    q = n // 4
+    in_pay[:2 * q, :, :dim] = 0
+    x[:2 * q] = 0
+    if dim >= 2:
+        a = rng.integers(1, 4 * scale, q)
+        x[q:2 * q, 0] = a
+        x[q:2 * q, 1] = a
+    return in_pay, out_pay, x
+
+
+@pytest.mark.parametrize("n,dim,ndirs,tau", [
+    (WW_1E6, 2, 16, 1.0), (PAD_1E6, 2, 16, 1.0), (4099, 1, 16, 0.5),
+    (4099, 3, 6, 0.0), (4099, 3, 16, 1.0), (4099, 8, 20, 1.0)])
+def test_threshold_step_l2_kernel_matches_plain(cuda, n, dim, ndirs, tau):
+    prob = L2Thresh(tau=tau, dim=dim, ndirs=ndirs)
+    rng = np.random.default_rng(n + dim)
+    args = [torch.from_numpy(a).to(cuda) for a in l2_inputs(rng, n, dim)]
+    want = threshold_step_reference(prob, *args)
+    before = LAUNCHES["threshold_step_l2"]
+    got = threshold_step(prob, *args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["threshold_step_l2"] == before + 1
+    _same(got, want)
+
+
+def test_majority_step_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(8)
+    n = PAD_1E6
+    planes = [torch.from_numpy(_ints(rng, 0, 60, (n, 3), n // 16)).to(cuda)
+              for _ in range(4)]
+    x = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(cuda)
+    want = majority_step_reference(*planes, x)
+    before = LAUNCHES["majority_step"]
+    got = majority_step(*planes, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["majority_step"] == before + 1
+    _same(got, want)
+
+
 @pytest.mark.parametrize("links", [NL_1E6 // 3, 30_000])
 def test_due_dedup_kernel_matches_plain(cuda, links):
     """2^21 links spreads the window; 30,000 puts ~9 rows on each link."""
@@ -80,18 +160,19 @@ def test_due_dedup_kernel_matches_plain(cuda, links):
         _same(got, want)
 
 
-def test_stage_rows_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("roww", [8, 9])  # majority/mean; L2 with D = 2
+def test_stage_rows_kernel_matches_plain(cuda, roww):
     m = 1_049_088  # lanes * 4 * window_l at n = 1e6
     rng = np.random.default_rng(1)
     rows = torch.from_numpy(
-        rng.integers(0, 2**32, (m, 8), dtype=np.uint64).astype(np.int64))
+        rng.integers(0, 2**32, (m, roww), dtype=np.uint64).astype(np.int64))
     mask = torch.from_numpy(rng.random(m) < 0.6)
     args = [rows.to(cuda), torch.from_numpy(rng.random(m) < 0.15).to(cuda),
             (torch.cumsum(mask.long(), 0) - 1).to(cuda),  # -1 before the first
             torch.from_numpy((rng.permutation(10) + 1).astype(np.int32)).to(cuda)]
     for t in (12345, 0xFFFFFFFF - 4):  # the stamp wraps at 32 bits
-        want = stage_rows_reference(*args, t, 7)
-        got = stage_rows(*args, t, 7)
+        want = stage_rows_reference(*args, t, roww - 1)
+        got = stage_rows(*args, t, roww - 1)
         torch.cuda.synchronize()
         _same((got,), (want,))
 
@@ -136,6 +217,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                              device=cuda),
                        torch.zeros((4, 3, 2), dtype=torch.int32, device=cuda),
                        torch.zeros((4, 1), dtype=torch.int32, device=cuda))
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # L2 with D = 2 wants P = 3
+        threshold_step(L2Thresh(dim=2), z(4, 3, 2), z(4, 3, 2), z(4, 2))
+    with pytest.raises(ValueError):  # no instantiation above D = 8
+        threshold_step(L2Thresh(dim=9), z(4, 3, 10), z(4, 3, 10), z(4, 9))
+    with pytest.raises(ValueError):
+        majority_step(z(4, 3), z(4, 3), z(4, 3), z(4, 3), z(5))
 
 
 def test_engine_kernels_match_plain_and_launch(cuda):
@@ -152,9 +240,73 @@ def test_engine_kernels_match_plain_and_launch(cuda):
     b.step(120)
     counts = launch_counts()
     assert counts == {"stage_rows": 120, "threshold_step": 120,
-                      "due_dedup": 120, "descent_tail": 120}
+                      "due_dedup": 120, "descent_tail": 120,
+                      "threshold_step_mean": 0, "threshold_step_l2": 0,
+                      "majority_step": 0}
     sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
     for k in sa:
         assert np.array_equal(sa[k], sb[k]), k
     assert a.dropped == 0
     a.check_conservation()
+
+
+def _problem_data(name, n, rng, phase):
+    """Golden-cell-like raw data (mean: N(-+0.6, 0.8); L2: a cloud around
+    a mean outside / inside the tau = 1 ball)."""
+    if name == "mean":
+        return rng.normal(-0.6 if phase == 0 else 0.6, 0.8, size=n)
+    c = np.array([0.6, -0.8]) * (1.3 if phase == 0 else 0.45)
+    return rng.normal(c, 0.9, size=(n, 2))
+
+
+@pytest.mark.parametrize("name", ["mean", "l2"])
+def test_engine_problems_kernels_match_plain_under_churn(cuda, name):
+    """Mean / L2 engines with the CUDA kernels vs with their plain
+    versions, both on the card, through a data flip and a churn
+    schedule: full state equal; the problem's threshold form launched."""
+    n = 4096
+    rng = np.random.default_rng(9)
+    ring = Ring.random(n, 32, seed=9)
+    prob = MeanMonitor(tau=0.3) if name == "mean" else L2Thresh(tau=1, dim=2)
+    data = _problem_data(name, n, rng, 0)
+    engs = [make_engine("torch", ring, data, seed=10, capacity_per_peer=8,
+                        problem=prob, wheel_kernels=wk)
+            for wk in ("auto", "none")]
+    reset_launches()
+    new = _problem_data(name, n, rng, 1)
+    sched = random_schedule(ring, 6, seed=11, spacing=15)
+    for e in engs:
+        e.step(60)
+        e.apply_coalesced(np.arange(n), new)
+        sched.apply(e)
+    form = "threshold_step_mean" if name == "mean" else "threshold_step_l2"
+    counts = launch_counts()
+    assert counts[form] == 60 + 1 + 6 * 15 and counts["threshold_step"] == 0
+    sa, sb = state_to_numpy(engs[0]._st), state_to_numpy(engs[1]._st)
+    for k in sa:
+        assert np.array_equal(sa[k], sb[k]), k
+    assert engs[0].dropped == 0
+    engs[0].check_conservation()
+
+
+def test_engine_majority_step_route_matches_plain(cuda):
+    """A majority engine without the threshold kernel runs its event
+    react through the majority_step kernel; equal to the plain engine."""
+    ring = Ring.random(2000, 32, seed=12)
+    votes = (np.random.default_rng(12).random(2000) < 0.45).astype(np.int64)
+    reset_launches()
+    a = make_engine("torch", ring, votes, seed=13, capacity_per_peer=8,
+                    wheel_kernels=("dedup", "enqueue", "descent"))
+    b = make_engine("torch", ring, votes, seed=13, capacity_per_peer=8,
+                    wheel_kernels="none")
+    sched = random_schedule(ring, 4, seed=14, spacing=20)
+    for e in (a, b):
+        e.step(50)
+        e.apply_coalesced(np.arange(0, 2000, 7), np.ones(286, np.int64))
+        sched.apply(e)
+    counts = launch_counts()
+    assert counts["majority_step"] == 2 and counts["threshold_step"] == 0
+    assert counts["due_dedup"] == 50 + 4 * 20
+    sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
+    for k in sa:
+        assert np.array_equal(sa[k], sb[k]), k

@@ -3,14 +3,16 @@
 The port's engine runs with ``device="cpu"`` (its kernel wrappers then
 take their plain versions) in lockstep with
 ``JaxEngine(kernel="ref", wheel_kernels="none")``: the full state is
-compared after every cycle, field by field and exactly (tolerance 0),
-through stage 1 (converge) and stage 2 (vote flip) of the three golden
-majority cells, and the stage cycles / messages must be the golden jax
-cells' of tests/golden_majority.json.
+compared after every cycle and after every join/leave, field by field
+and exactly (tolerance 0), through stage 1 (converge), stage 2 (vote
+flip) and stage 3 (one join + one leave) of the three golden majority
+cells, and the stage cycles / messages and the output/vote hashes must
+be the golden jax cells' of tests/golden_majority.json.
 """
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import os
 import subprocess
@@ -80,8 +82,9 @@ def _golden_jax_cells():
 
 @pytest.mark.parametrize("idx", range(3))
 def test_engine_lockstep_golden_stages(idx):
-    """Full state equal after every cycle through stages 1-2; the stage
-    cycles and messages are the golden jax cell's."""
+    """Full state equal after every cycle and every join/leave through
+    stages 1-3; the stage cycles and messages and the output/vote hashes
+    are the golden jax cell's."""
     cell = _golden_jax_cells()[idx]
     n, mu, ring_seed, eng_seed = cell["cell"][:4]
     rng = np.random.default_rng(ring_seed + 100)
@@ -102,10 +105,23 @@ def test_engine_lockstep_golden_stages(idx):
     _assert_same_state(je, te, "after the vote flip")
     res2 = te.run_until_converged(truth=int(2 * new.sum() >= n),
                                   max_cycles=20_000)
-    for got, want in zip((res, res2), cell["stages"][:2]):
+    free = np.setdiff1d(np.arange(1, 1 << 16, dtype=np.uint64),
+                        jring.addrs % (1 << 16))
+    for op, args, kw in (("join", (int(free[3]),), {"vote": 1}),
+                         ("leave", (0,), {})):
+        getattr(te, op)(*args, **kw)
+        getattr(je, op)(*args, **kw)
+        _assert_same_state(je, te, f"after {op}")
+    v = te.votes()
+    res3 = te.run_until_converged(truth=int(2 * v.sum() >= v.size),
+                                  max_cycles=20_000)
+    for got, want in zip((res, res2, res3), cell["stages"]):
         assert got["converged"] == want["converged"] == 1.0
         assert (got["cycles"], got["messages"]) == (want["cycles"],
                                                     want["messages"])
+    sha = lambda a: hashlib.sha256(a.astype(np.int64).tobytes()).hexdigest()
+    assert sha(te.outputs()) == cell["outputs_sha"]
+    assert sha(te.votes()) == cell["votes_sha"]
     assert te.dropped == 0
     te.check_conservation()
     np.testing.assert_array_equal(te.outputs(), je.outputs())
@@ -172,21 +188,21 @@ def test_entry_points_default_to_cuda():
 
 
 def test_later_slices_raise():
+    """What is not ported raises: the fault plane (``faults=``, `crash`),
+    naming its ROADMAP item; unknown backends and wheel kernels."""
     ring = Ring.random(48, 32, seed=0)
     votes = np.zeros(48, np.int64)
     with pytest.raises(ValueError):
         make_engine("jax", ring, votes, device="cpu")
-    for problem in ("mean", "l2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_engine("torch", ring, votes, device="cpu", problem=problem)
+    with pytest.raises(ValueError, match="bogus"):
+        make_engine("torch", ring, votes, device="cpu",
+                    wheel_kernels=("bogus",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_engine("torch", ring, votes, device="cpu", faults=FaultConfig())
     eng = make_engine("torch", ring, votes, device="cpu",
                       capacity_per_peer=8)
-    for call in (lambda: eng.join(12345), lambda: eng.leave(0),
-                 lambda: eng.crash(0), lambda: eng._grow(100)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.crash(0)
     # the serve-layer flush re-enters the event react
     assert eng.apply_coalesced(np.array([3, 7]), np.array([1, 1])) == 2
     assert eng.votes()[[3, 7]].tolist() == [1, 1]

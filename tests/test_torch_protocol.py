@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from repro.core import addressing as RA
 from repro.engine import protocol as RP
+from repro.engine import problems as RP_problems
 from repro.engine.problems import Majority as RMajority
 from repro_torch.engine import protocol as TP
 from repro_torch.engine.problems import Majority, get_problem
@@ -122,9 +123,10 @@ def test_threshold_and_majority_rules_match_reference():
 def test_problem_layer_scope():
     assert isinstance(get_problem(None), Majority)
     assert isinstance(get_problem("majority"), Majority)
-    for name in ("mean", "l2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_problem(name)
+    for name in ("mean", "l2"):  # ported: the reference's names resolve
+        got, want = get_problem(name), RP_problems.get_problem(name)
+        assert type(got).__name__ == type(want).__name__
+        assert got.payload_width == want.payload_width
     with pytest.raises(ValueError):
         get_problem("nope")
     data = np.array([[1], [0], [1]])
