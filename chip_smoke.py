@@ -28,12 +28,28 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      leave, converge again;
   7. L2 at n = 1,000,000: the init storm, then 100 cycles with 16 churn
      events; then a device-time profile of 10 cycles and of one join;
-  8. checks the launch counts of each driven path, read with the counts
+  8. the training substrate's three kernels against their plain versions
+     at the trainer's shapes: `threshold_gate` exactly (SmolLM-135M's
+     134,515,008 parameters as one ragged flat tensor; tau <= 0 on a
+     ragged 1,000,003), `rglru_scan` forward and the reversed backward
+     scan at (1, 4096, 4096) bf16, `flash_attention_fwd` o and lse at
+     RecurrentGemma-9B's (1, 16 / 1, 4096, 256) window-2048 band and
+     SmolLM-135M's (4, 9 / 3, 2048, 64) causal GQA, bf16, each beside
+     `scaled_dot_product_attention` on the same inputs;
+  9. the trainer on RecurrentGemma-9B at full width, depth 3 (one
+     pattern period), batch 1 x 4096, 4 steps (`run_plain`); its first
+     step against the same step with every kernel's plain version; then
+     a device-time profile of one step;
+ 10. the trainer on SmolLM-135M (full config) in threshold mode, 2 pods,
+     compress tau 1e-4, max inner 4, batch 8 x 2048, 12 steps
+     (`run_threshold`), and the same run with plain kernels;
+ 11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
-     threshold kernel, phases 4-5, phases 6-7): every kernel the path
-     runs launched at least once, every other kernel never. Prints one
-     JSON line with every kernel's launches (on its main path, and on
-     each path that runs it), its error, times and bound.
+     threshold kernel, phases 4-5, phases 6-7, phase 9's run, phase 10's
+     run): every kernel the path runs launched at least once, every
+     other kernel never. Prints one JSON line with every kernel's
+     launches (on its main path, and on each path that runs it), its
+     error, times and bound.
 
 Every phase asserts; the last line is the run's JSON verdict. Exits
 non-zero without printing a result when no CUDA device is present or the
@@ -54,6 +70,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 peak; the int32 work
 # of these kernels is priced at this rate (the data sheet lists no int32
 # ALU rate)
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 N_BIG = 1_000_000
 N_MID = 100_000
 SOURCES = {
@@ -71,6 +88,13 @@ SOURCES = {
                           "src/repro/kernels/wheel/threshold_step.py:35"),
     "majority_step": ("src/repro_torch/kernels/csrc/majority_step.cu",
                       "src/repro/kernels/majority_step/majority_step.py:45"),
+    "threshold_gate": ("src/repro_torch/kernels/csrc/threshold_gate.cu",
+                       "src/repro/kernels/threshold_gate/threshold_gate.py:36"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru.cu",
+                   "src/repro/kernels/rglru/rglru.py:56"),
+    "flash_attention_fwd": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:101"),
 }
 # the kernels each driven path launches (every other kernel must stay at
 # 0 there), and the path whose count a kernel's entry reports
@@ -81,11 +105,15 @@ PATH_KERNELS = {
                  "descent_tail"},
     "mean_l2": {"stage_rows", "due_dedup", "descent_tail",
                 "threshold_step_mean", "threshold_step_l2"},
+    "train_rg9b": {"rglru_scan", "flash_attention_fwd"},
+    "train_smollm_threshold": {"flash_attention_fwd", "threshold_gate"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
              "threshold_step_mean": "mean_l2", "threshold_step_l2": "mean_l2",
-             "majority_step": "majority_no_threshold"}
+             "majority_step": "majority_no_threshold",
+             "rglru_scan": "train_rg9b", "flash_attention_fwd": "train_rg9b",
+             "threshold_gate": "train_smollm_threshold"}
 # integer operations per unit of work, counted from the CUDA sources
 OPS_PER_ROW = {"stage_rows": 1, "threshold_step": 40, "due_dedup": 30,
                "descent_tail": 60,  # descent: per row-step
@@ -670,6 +698,361 @@ def phase_profile(dev, eng, cycles: int) -> None:
             f"{e.count / cycles:5.1f}x  {e.key[:90]}")
 
 
+# -- phase 8: the training substrate's kernels vs their plain versions ------
+
+# stated tolerances against the plain version on the card, per element
+# |kernel - plain| <= rtol |plain| + atol: threshold_gate exact; rglru
+# (forward, and the backward's da, du) and flash o in bfloat16 within two
+# bfloat16 rounding steps (2^-6 relative: the kernel's float32 state or
+# sums round differently before the bf16 store), the backward's
+# da = G h_prev within four (a product of two such values, rounded);
+# flash lse in float32 from the same bf16 inputs, summed in another order
+TOL = {"threshold_gate": (0.0, 0.0), "rglru_scan": (2 ** -6, 1e-3),
+       "rglru_scan_bwd": (2 ** -5, 1e-3), "flash_attention_fwd": (2 ** -6,
+                                                                 2 ** -8),
+       "flash_lse": (1e-5, 1e-3)}
+SMOLLM_PARAMS = 134_515_008  # SmolLM-135M's parameter count (30 layers)
+
+
+def float_err(got, want, tol_name: str) -> float:
+    """Max abs error of `got` against `want`; asserts every element
+    within the stated tolerance TOL[tol_name]."""
+    import torch
+
+    rtol, atol = TOL[tol_name]
+    err = 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape)
+        if g.numel():
+            d = (g.float() - w.float()).abs()
+            err = max(err, d.max().item())
+            bad = int((d > rtol * w.float().abs() + atol).sum())
+            assert bad == 0, (f"{tol_name}: {bad} elements outside rtol "
+                              f"{rtol}, atol {atol} (max abs err "
+                              f"{d.max().item():.3g})")
+    return err
+
+
+def band_pairs(sq: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one head at q_offset 0."""
+    tot = 0
+    for i in range(sq):
+        hi = i if causal else sq - 1
+        lo = max(0, i - window + 1) if window else 0
+        tot += hi - lo + 1
+    return tot
+
+
+def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
+    """One PyTorch call computing the same attention (the yardstick):
+    (ms, backend) of `scaled_dot_product_attention`. Causal GQA uses
+    is_causal; a band passes an explicit boolean mask, and the first
+    backend that accepts it is named."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as Fn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sq = q.shape[2]
+    kw = {"enable_gqa": True}
+    if window:
+        i = torch.arange(sq, device=dev)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (
+            i[None, :] > i[:, None] - window)
+    else:
+        kw["is_causal"] = causal
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that refuses the inputs warns why, then raises
+            with sdpa_kernel(be), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                Fn.scaled_dot_product_attention(q, k, v, **kw)
+                sync(dev)
+                ms = time_ms(lambda: Fn.scaled_dot_product_attention(
+                    q, k, v, **kw), dev, iters)
+            return ms, be.name
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend ran")
+
+
+def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
+                        scan=(1, 4096, 4096),
+                        rg_attn=(1, 16, 1, 4096, 256, 2048),
+                        sm_attn=(4, 9, 3, 2048, 64)) -> dict:
+    """threshold_gate, rglru_scan and flash_attention_fwd against their
+    plain versions on the card at the trainer's shapes, timed."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     pair_fwd)
+    from repro_torch.kernels.rglru import (linear_scan, linear_scan_reference,
+                                           rglru_scan)
+    from repro_torch.kernels.threshold_gate import (threshold_gate,
+                                                    threshold_gate_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    rows = {}
+
+    def record(name, kernel, plain, err, io, flops, flop_rate, piters,
+               tag="main", library=None):
+        call = time_ms(kernel, dev, iters)
+        pcall = time_ms(plain, dev, piters, warmup=1)
+        ms = device_ms(kernel, dev, iters)
+        pms = device_ms(plain, dev, piters)
+        t_bytes, t_ops = io / HBM_BYTES_PER_S, flops / flop_rate
+        b_ms = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+               "bound_ms": b_ms, "bound_by": by,
+               "library_ms": None if library is None else library[0]}
+        if library is not None:
+            fig["library"] = f"scaled_dot_product_attention ({library[1]})"
+        if flop_rate == BF16_FLOPS_PER_S:
+            fig["bound_ms_at_fp32_cuda_cores"] = max(
+                t_bytes, flops / ALU_OPS_PER_S) * 1e3
+        rows.setdefault(name, {}).setdefault("shapes", {})[tag] = fig
+        if tag == "main":
+            rows[name].update(fig)
+        log(f"  {name} {tag}: max_abs_err {err:.3g} (rtol, atol "
+            f"{TOL[name]})  "
+            f"device: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}); per call with launch: kernel {call:.4f} "
+            f"ms, plain {pcall:.4f} ms"
+            + ("" if library is None else
+               f"; SDPA ({library[1]}) {library[0]:.4f} ms")
+            + f"  [{io / 1e6:.1f} MB moved, {flops / 1e9:.2f} GFLOP]")
+
+    # threshold_gate: the sync's float32 delta and residual (exact)
+    for n, tau, tag in ((gate_n, 1e-4, "main"), (1_000_003, 0.0, "tau0")):
+        g = torch.randn(n, generator=gen, device=dev) * 1e-4
+        r = torch.randn(n, generator=gen, device=dev) * 1e-4
+        want, got = threshold_gate_reference(g, r, tau), threshold_gate(g, r, tau)
+        sync(dev)
+        err = float_err(got[:2], want[:2], "threshold_gate")
+        assert int(got[2]) == int(want[2]), \
+            f"threshold_gate ({tag}): counts differ"
+        if tau <= 0:
+            assert int(got[2]) == n
+        record("threshold_gate", lambda: threshold_gate(g, r, tau),
+               lambda: threshold_gate_reference(g, r, tau), err, 16 * n,
+               3 * n, ALU_OPS_PER_S, max(1, iters // 4), tag)
+        log(f"    n={n} tau={tau}: {int(got[2])} sent, counts equal")
+        del g, r, want, got
+
+    # rglru_scan: forward, then the Function's backward (the reversed scan)
+    b, t, w = scan
+    a = (torch.rand((b, t, w), generator=gen, device=dev) * 0.2 + 0.8
+         ).bfloat16()
+    u = (torch.randn((b, t, w), generator=gen, device=dev) * 0.1).bfloat16()
+    got, want = rglru_scan(a, u), linear_scan_reference(a, u)
+    sync(dev)
+    err = float_err(got, want, "rglru_scan")
+    record("rglru_scan", lambda: rglru_scan(a, u),
+           lambda: linear_scan_reference(a, u), err, 3 * a.numel() * 2,
+           2 * a.numel(), ALU_OPS_PER_S, max(1, iters // 4))
+    cot = torch.randn((b, t, w), generator=gen, device=dev).bfloat16()
+    grads = []
+    for use_kernel in (True, False):
+        xs = [x.clone().requires_grad_() for x in (a, u)]
+        h, _ = linear_scan(*xs, use_kernel=use_kernel)
+        (h.float() * cot.float()).sum().backward()
+        grads.append([x.grad for x in xs])
+    sync(dev)
+    err_b = float_err(*grads, "rglru_scan_bwd")
+    rows["rglru_scan"]["backward_max_abs_err"] = err_b
+    log(f"    backward (reversed scan on the kernel vs plain): da, du "
+        f"max_abs_err {err_b:.3g} (rtol, atol {TOL['rglru_scan_bwd']})")
+    del a, u, cot, grads, xs, h
+
+    # flash_attention_fwd: RG-9B's MQA band, then SmolLM's causal GQA
+    for tag, (bb, hq, hkv, sq, dh, window) in (
+            ("main", rg_attn), ("smollm", (*sm_attn, None))):
+        q = torch.randn((bb, hq, sq, dh), generator=gen, device=dev).bfloat16()
+        k = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
+        v = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
+        got = flash_attention_fwd(q, k, v, True, window)
+        want = pair_fwd(q, k, v, True, window, None)
+        sync(dev)
+        err = float_err(got[:1], want[:1], "flash_attention_fwd")
+        err_l = float_err(got[1:], want[1:], "flash_lse")
+        pairs = band_pairs(sq, True, window) * bb * hq
+        io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
+        lib = sdpa_time(dev, q, k, v, True, window, iters)
+        record("flash_attention_fwd", lambda: flash_attention_fwd(
+            q, k, v, True, window), lambda: pair_fwd(q, k, v, True, window,
+                                                     None),
+            err, io, 4 * dh * pairs, BF16_FLOPS_PER_S, max(1, iters // 4),
+            tag, library=lib)
+        rows["flash_attention_fwd"]["shapes"][tag]["lse_max_abs_err"] = err_l
+        del q, k, v, got, want
+    return rows
+
+
+# -- phases 9 and 10: the trainer ---------------------------------------------
+
+def train_args(**kw):
+    from repro_torch.launch.train import parser
+
+    args = parser().parse_args([])
+    args.log_every = 1
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def phase_train_rg(dev, layers: int = 3, batch: int = 1, seq: int = 4096,
+                   steps: int = 4, smoke: bool = False):
+    """RecurrentGemma-9B at full width, depth `layers`, through
+    `run_plain`, then its first step with every kernel's plain version.
+    Returns (figures, launch counts of the kernel run, (cfg, params,
+    args) for the profile)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_plain
+
+    base = (get_smoke_config if smoke else get_config)("recurrentgemma-9b")
+    cfg = dataclasses.replace(base, num_layers=layers)
+    kw = dict(arch="recurrentgemma-9b", batch=batch, seq_len=seq,
+              device=str(dev))
+    args = train_args(steps=steps, **kw)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    res = run_plain(args, cfg=cfg)
+    sync(dev)
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else float("nan"))
+    assert all(np.isfinite(res.losses)), f"non-finite loss {res.losses}"
+    params, res.params = res.params, None
+    n_params = sum(p.numel() for p in _leaves(params))
+    # the first step (before any update, so the schedule's length does
+    # not enter) with every kernel's plain version, from the same init
+    plain = run_plain(train_args(steps=1, **kw),
+                      cfg=dataclasses.replace(cfg, use_kernels=False))
+    plain.params = None
+    d_loss = abs(plain.losses[0] - res.losses[0]) / abs(plain.losses[0])
+    d_norm = abs(plain.grad_norms[0] - res.grad_norms[0]) / plain.grad_norms[0]
+    assert d_loss <= 5e-3, f"first-step loss differs from plain: {d_loss}"
+    assert d_norm <= 2e-2, f"first-step grad norm differs from plain: {d_norm}"
+    later = sorted(res.step_seconds[1:])
+    steady = later[len(later) // 2]
+    fig = {"layers": layers, "params": n_params, "batch": batch, "seq": seq,
+           "losses": res.losses, "grad_norms": res.grad_norms,
+           "step_ms": [x * 1e3 for x in res.step_seconds],
+           "median_step_ms": steady * 1e3,
+           "tokens_per_s": batch * seq / steady, "peak_gb": peak,
+           "plain_first_loss": plain.losses[0],
+           "plain_first_grad_norm": plain.grad_norms[0],
+           "first_step_rel_diff": {"loss": d_loss, "grad_norm": d_norm}}
+    log(f"  RG-9B depth {layers} ({n_params / 1e9:.3f} B params), batch "
+        f"{batch} x {seq}: losses {[round(x, 4) for x in res.losses]}; "
+        f"median step {steady * 1e3:.1f} ms = {batch * seq / steady:.0f} "
+        f"tokens/s; peak memory {peak:.1f} GB; first step vs plain kernels: "
+        f"loss rel diff {d_loss:.2e} (tol 5e-3), grad norm {d_norm:.2e} "
+        f"(tol 2e-2)")
+    return fig, counts, (cfg, params, args)
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return leaves(tree)
+
+
+def profile_train_step(dev, cfg, params, args) -> dict:
+    """Device time by kernel over one training step (a fresh optimizer
+    state; one step to warm up first)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as S
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+
+    opt_state = init_state(params)
+    step = S.make_train_step(cfg, AdamWConfig(lr=args.lr), args.schedule, 10)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq_len, args.batch,
+                                  seed=7))
+    batch = [torch.from_numpy(x).to(dev) for x in data.next_batch()]
+    step(params, opt_state, *batch)
+    sync(dev)
+    t0 = time.perf_counter()
+    step(params, opt_state, *batch)
+    sync(dev)
+    wall0 = time.perf_counter() - t0
+    wall, ev = device_events(dev, lambda: step(params, opt_state, *batch))
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    launches = sum(e.count for e in ev)
+    log(f"  profile of one RG-9B step: wall {wall0 * 1e3:.1f} ms unprofiled, "
+        f"{wall * 1e3:.1f} profiled; device busy {dev_ms:.1f} ms in "
+        f"{launches} device launches ({100 * dev_ms / (wall0 * 1e3):.0f}% of "
+        f"the unprofiled wall)")
+    top = []
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:5d}x  "
+            f"{e.key[:90]}")
+        top.append([e.key[:90], e.self_device_time_total / 1e3, e.count])
+    return {"wall_ms": wall0 * 1e3, "device_busy_ms": dev_ms,
+            "busy_share": dev_ms / (wall0 * 1e3), "launches": launches,
+            "top": top}
+
+
+def phase_train_smollm(dev, steps: int = 12, batch: int = 8,
+                       seq: int = 2048, smoke: bool = False):
+    """SmolLM-135M (full config) in threshold mode through
+    `run_threshold`, then the same run with plain kernels."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_threshold
+
+    cfg = (get_smoke_config if smoke else get_config)("smollm-135m")
+    kw = dict(arch="smollm-135m", steps=steps, batch=batch, seq_len=seq,
+              sync="threshold", pods=2, compress_tau=1e-4, max_inner=4,
+              device=str(dev))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_threshold(train_args(**kw), cfg=cfg)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_params = sum(p.numel() for p in _leaves(res.params[0]))
+    res.params = None
+    plain = run_threshold(train_args(**kw),
+                          cfg=dataclasses.replace(cfg, use_kernels=False))
+    plain.params = None
+    dense = res.n_syncs * n_params * 4
+    assert all(np.isfinite(res.losses)), f"non-finite loss {res.losses}"
+    assert res.n_syncs >= 3, f"only {res.n_syncs} syncs"
+    assert 0 < res.sent_bytes < dense, (res.sent_bytes, dense)
+    assert res.n_syncs == plain.n_syncs and \
+        res.sync_steps == plain.sync_steps, (res.sync_steps, plain.sync_steps)
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(res.losses, plain.losses))
+    assert d_loss <= 1e-2, f"losses differ from the plain run: {d_loss}"
+    steady = sorted(res.step_seconds[1:])[len(res.step_seconds[1:]) // 2]
+    fig = {"params": n_params, "steps": steps, "syncs": res.n_syncs,
+           "sync_steps": res.sync_steps, "sent_bytes": res.sent_bytes,
+           "dense_bytes": dense, "losses": res.losses,
+           "plain_losses": plain.losses, "plain_sent_bytes": plain.sent_bytes,
+           "max_rel_loss_diff": d_loss, "median_step_ms": steady * 1e3,
+           "tokens_per_s": batch * seq / steady, "wall_s": wall}
+    log(f"  SmolLM-135M threshold: {res.n_syncs} syncs at steps "
+        f"{res.sync_steps}, sent {res.sent_bytes} bytes of {dense} dense "
+        f"({100 * res.sent_bytes / dense:.2f} %; plain run {plain.sent_bytes}); "
+        f"losses {[round(x, 4) for x in res.losses]}; max rel diff to the "
+        f"plain run {d_loss:.2e} (tol 1e-2); median step (2 pods) "
+        f"{steady * 1e3:.1f} ms = {batch * seq / steady:.0f} tokens/s")
+    return fig, counts
+
+
+
 def main() -> int:
     import torch
 
@@ -769,6 +1152,22 @@ def main() -> int:
     big.check_conservation()
     del big
     torch.cuda.empty_cache()
+
+    log("phase 8: the training substrate's kernels vs plain versions at "
+        "the trainer's shapes")
+    rows.update(phase_train_kernels(dev, iters=20))
+    torch.cuda.empty_cache()
+    log("phase 9: RecurrentGemma-9B, full width, depth 3, batch 1 x 4096, "
+        "run_plain, 4 steps")
+    rg, paths["train_rg9b"], (rg_cfg, rg_params, rg_args) = phase_train_rg(dev)
+    rg["profile"] = profile_train_step(dev, rg_cfg, rg_params, rg_args)
+    del rg_params
+    torch.cuda.empty_cache()
+    log("phase 10: SmolLM-135M (30 layers), threshold sync, 2 pods, "
+        "compress tau 1e-4, max inner 4, batch 8 x 2048, 12 steps")
+    sm, paths["train_smollm_threshold"] = phase_train_smollm(dev)
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -776,9 +1175,10 @@ def main() -> int:
             else:
                 assert k == 0, f"kernel {name} launched on path {path}"
 
-    log("phase 8: kernels on their paths (majority wheel kernels: phases "
+    log("phase 11: kernels on their paths (majority wheel kernels: phases "
         "4-5; mean/L2: phases 6-7; majority without the threshold kernel: "
-        f"phase 3): {json.dumps(paths)}")
+        "phase 3; RG-9B trainer: phase 9; SmolLM threshold trainer: phase "
+        f"10): {json.dumps(paths)}")
     table = []
     for name, (src, rep) in SOURCES.items():
         table.append({"name": name, "route": "cuda", "source": src,
@@ -787,7 +1187,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm})}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

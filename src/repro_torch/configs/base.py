@@ -1,0 +1,104 @@
+"""Config schema of the architectures (a copy of `repro.configs.base`'s
+`BlockDef` and `ModelConfig` with torch dtypes).
+
+A `ModelConfig` fully determines parameters and computation. Layer
+stacking is a repeating *pattern* of `BlockDef`s (mixer + FFN kind);
+`segments()` turns (num_layers, pattern, first_dense_layers) into
+segments of homogeneous periods, exactly as the reference does. The
+reference scans each segment with ``lax.scan``; the port loops over its
+periods.
+
+One field differs: the reference's ``use_pallas`` (off by default,
+since its kernels need a TPU) is ``use_kernels`` here, on by default.
+With it, CUDA tensors go through the hand-written kernels
+(`flash_attention_fwd`, `rglru_scan`); without it, through their plain
+PyTorch versions on any device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDef:
+    """One layer's recipe: a mixer ('attn', 'swa', 'rglru' are ported;
+    'bidir', 'xattn', 'dec', 'mla', 'mlstm', 'slstm' are not yet) and an
+    FFN ('dense' is ported; 'moe', 'dense_moe', 'none' are not yet)."""
+
+    mixer: str
+    ffn: str = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[BlockDef, ...] = (BlockDef("attn", "dense"),)
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    norm: str = "rmsnorm"
+    activation: str = "silu"
+    gated_mlp: bool = True
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None  # for 'swa'
+    attn_bias: bool = False
+    qk_norm: bool = False
+    attn_scale: Optional[float] = None
+    attn_softcap: Optional[float] = None
+    emb_scale: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    tie_embeddings: bool = True
+    rec_width: int = 0  # RG-LRU width (0 -> d_model)
+    rglru_c: float = 8.0
+    moe: Optional[object] = None  # MoE and MLA sub-configs: not ported
+    mla: Optional[object] = None  # yet (ROADMAP.md §A8)
+    first_dense_layers: int = 0
+    enc_layers: int = 0
+    enc_pattern: Tuple[BlockDef, ...] = (BlockDef("bidir", "dense"),)
+    frontend: Optional[str] = None
+    n_frontend_tokens: int = 0
+    frontend_dim: int = 0
+    seq_shard: bool = False
+    mtp: bool = False
+    mtp_weight: float = 0.3
+    use_kernels: bool = True  # the reference's use_pallas, on by default
+    remat: str = "none"
+    dtype: str = "bfloat16"
+    scan_layers: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
+
+    def segments(self) -> Tuple[Tuple[Tuple[BlockDef, ...], int], ...]:
+        """((pattern, n_periods), ...) covering all `num_layers` layers."""
+        segs = []
+        layers_left = self.num_layers
+        if self.first_dense_layers:
+            lead = tuple(
+                dataclasses.replace(b, ffn="dense") if b.ffn != "none" else b
+                for b in self.pattern
+            )
+            assert len(lead) == 1, "first_dense_layers expects a 1-block pattern"
+            segs.append((lead, self.first_dense_layers))
+            layers_left -= self.first_dense_layers
+        p = len(self.pattern)
+        full, rem = divmod(layers_left, p)
+        if full:
+            segs.append((self.pattern, full))
+        if rem:
+            segs.append((self.pattern[:rem], 1))
+        return tuple(segs)
+

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.core import addressing as A
 from repro_torch.core.simulator import MAX_DELAY, MIN_DELAY
+from repro_torch.device import resolve_device
 from repro_torch.engine import protocol as P
 from repro_torch.engine.base import (EngineResult, coalesced_update,
                                      run_convergence_loop)
@@ -202,17 +203,6 @@ class PeerPlane:
     def exchange(self, arr: torch.Tensor) -> torch.Tensor:
         """Lane boundary exchange (identity on one device)."""
         return arr
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device: CUDA unless the caller names another. Raises
-    when CUDA is asked for and absent — never falls back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the GPU unless "
-            "the caller passes device='cpu'")
-    return dev
 
 
 class TorchEngine:

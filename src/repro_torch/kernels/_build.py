@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
 SOURCES = ("enqueue", "threshold_step", "due_dedup", "descent",
-           "majority_step")
+           "majority_step", "threshold_gate", "rglru", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,11 @@
+"""Causal / sliding-window GQA attention: `flash_attention_fwd` (the CUDA
+kernel on the card, the plain pair schedule on the CPU), the
+differentiable `flash_attention`, and the plain versions `pair_fwd`,
+`pair_bwd` and `mha_reference`."""
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import mha_reference
+from repro_torch.kernels.flash_attention.xla_ref import pair_bwd, pair_fwd
+
+__all__ = ["flash_attention", "flash_attention_fwd", "mha_reference",
+           "pair_bwd", "pair_fwd"]

@@ -1,0 +1,102 @@
+"""`flash_attention_fwd` (the CUDA kernel for CUDA tensors, the plain
+pair schedule for CPU tensors) and the differentiable `flash_attention`.
+
+Replaces the Pallas kernel `flash_attention_fwd`
+(src/repro/kernels/flash_attention/flash_attention.py:101). CUDA source:
+``kernels/csrc/flash_attention.cu``: one CTA per (batch x q head, 32-row
+q tile) over the visible 32-key tiles, float32 online softmax on the CUDA
+cores; GQA reads kv head h / (Hq / Hkv) without repeating heads. It also
+writes the per-row log-sum-exp, which the backward reads. Bound on the
+H100 by operations at the float32 rate it computes in.
+
+The backward is the plain FA2 pair schedule (`xla_ref.pair_bwd`) from
+the saved (q, k, v, o, lse), as the reference recomputes its backward
+through its XLA path (src/repro/kernels/flash_attention/ops.py:57); a
+hand-written backward kernel is later work.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.xla_ref import pair_bwd, pair_fwd
+from repro_torch.kernels.wheel._common import (F32, I32, P, bind, launched,
+                                               on_cuda, ptr, stream_of)
+
+_ARGS = [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, F32, I32, I32,
+         I32, P]
+_TYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, q_offset: int = 0):
+    """(o (B, Hq, Sq, D) in q's dtype, lse (B, Hq, Sq) float32). On CUDA:
+    contiguous q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) of one dtype
+    (float32 or bfloat16), Hq % Hkv == 0, D in `HEAD_DIMS`."""
+    if not on_cuda(q):
+        return pair_fwd(q, k, v, causal, window, scale, q_offset)
+    b, hq, sq, dh = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh \
+            or v.shape != k.shape:
+        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"flash_attention_fwd: Hq={hq} is not a multiple "
+                         f"of Hkv={hkv}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: head dim {dh} not in "
+                         f"{HEAD_DIMS}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention_fwd: window {window} <= 0")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_fwd: {name} is on {t.device}")
+        if t.dtype != q.dtype or q.dtype not in _TYPES:
+            raise TypeError(f"flash_attention_fwd: {name} has dtype "
+                            f"{t.dtype}; want float32 or bfloat16, one for all")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_fwd: {name} is not contiguous")
+    if scale is None:
+        scale = dh ** -0.5
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = bind("flash_attention", "rt_flash_attention_fwd", _ARGS)
+    launched("flash_attention_fwd", fn(
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
+        int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, dh, float(scale),
+        int(causal), -1 if window is None else int(window), int(q_offset),
+        stream_of(q.device)))
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, use_kernel):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fwd = flash_attention_fwd if use_kernel else pair_fwd
+        o, lse = fwd(q, k, v, causal, window, scale, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, gout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = pair_bwd(q, k, v, o, lse, gout, *ctx.args)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D), differentiable
+    in q, k and v. `use_kernel=False` takes the plain forward on every
+    device."""
+    return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
+                                 use_kernel)

@@ -1,6 +1,8 @@
-"""Shared plumbing for the delivery-wheel kernels.
+"""Shared plumbing for the port's kernels (the delivery-wheel kernels,
+`majority_step`, and the training substrate's `threshold_gate`,
+`rglru_scan` and `flash_attention_fwd`).
 
-Every wheel kernel module holds three things side by side: the CUDA
+Every kernel module holds three things side by side: the CUDA
 launch (a C function in ``kernels/csrc/<name>.cu``, bound with ctypes),
 its plain PyTorch version (the semantics, used for CPU tensors and by
 the engine when its kernels are switched off), and a launch count.
@@ -24,7 +26,8 @@ from repro_torch.kernels._build import library
 LAUNCHES: Dict[str, int] = {"stage_rows": 0, "threshold_step": 0,
                             "due_dedup": 0, "descent_tail": 0,
                             "threshold_step_mean": 0, "threshold_step_l2": 0,
-                            "majority_step": 0}
+                            "majority_step": 0, "threshold_gate": 0,
+                            "rglru_scan": 0, "flash_attention_fwd": 0}
 
 
 def reset_launches() -> None:

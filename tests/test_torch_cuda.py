@@ -11,6 +11,15 @@ engine with its kernels against the engine with their plain versions
 (majority, mean and L2, under churn). Every comparison is exact
 (tolerance 0): the kernels are integer code, and the L2 kernel's float32
 margins keep the plain version's operation order.
+
+The training substrate's kernels are held against their plain versions
+too: `threshold_gate` exactly (one add, compare and subtract, each
+rounded as the plain version rounds it; subnormals are kept, not
+flushed), `rglru_scan` and `flash_attention_fwd` within the tolerances
+stated at each test (float32 sums in another order; bfloat16 outputs
+within one rounding step), and the gradients of the differentiable
+`linear_scan` and `flash_attention` against autograd through the plain
+versions.
 """
 from __future__ import annotations
 
@@ -24,8 +33,15 @@ from repro_torch.core.dht import Ring
 from repro_torch.engine import make_engine
 from repro_torch.engine.convert import state_to_numpy
 from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fwd,
+                                                 mha_reference, pair_fwd)
 from repro_torch.kernels.majority_step import (majority_step,
                                                majority_step_reference)
+from repro_torch.kernels.rglru import (linear_scan, linear_scan_reference,
+                                       rglru_scan)
+from repro_torch.kernels.threshold_gate import (threshold_gate,
+                                                threshold_gate_reference)
 from repro_torch.kernels.wheel import (LAUNCHES, descent_reference,
                                        descent_tail, due_dedup,
                                        due_dedup_reference, launch_counts,
@@ -242,7 +258,8 @@ def test_engine_kernels_match_plain_and_launch(cuda):
     assert counts == {"stage_rows": 120, "threshold_step": 120,
                       "due_dedup": 120, "descent_tail": 120,
                       "threshold_step_mean": 0, "threshold_step_l2": 0,
-                      "majority_step": 0}
+                      "majority_step": 0, "threshold_gate": 0,
+                      "rglru_scan": 0, "flash_attention_fwd": 0}
     sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
     for k in sa:
         assert np.array_equal(sa[k], sb[k]), k
@@ -310,3 +327,188 @@ def test_engine_majority_step_route_matches_plain(cuda):
     sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
     for k in sa:
         assert np.array_equal(sa[k], sb[k]), k
+
+
+# -- the training substrate's kernels ---------------------------------------
+
+def _bits_equal(a, b):
+    """Bit-for-bit equal (signed zeros and subnormals included), NaN
+    where NaN (a NaN's payload is not compared)."""
+    assert a.dtype == b.dtype and a.shape == b.shape
+    nan = torch.isnan(a)
+    assert torch.equal(nan, torch.isnan(b))
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    assert torch.equal(a.view(ints)[~nan], b.view(ints)[~nan])
+
+
+@pytest.mark.parametrize("n,tau,gdt,rdt", [
+    (1_000_003, 1e-4, torch.float32, torch.float32),  # ragged length
+    (4097, 0.0, torch.float32, torch.float32),  # tau <= 0: everything sent
+    (4097, -1.0, torch.float32, torch.float32),
+    (65_537, 0.5, torch.bfloat16, torch.float32),  # bf16 in, fp32 residual
+    (65_537, 0.5, torch.bfloat16, torch.bfloat16)])
+def test_threshold_gate_kernel_matches_plain(cuda, n, tau, gdt, rdt):
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 1e-3)
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 1e-3)
+    g[:7] = torch.tensor([0.0, -0.0, 1e-40, -1e-40, tau, -tau, float("nan")])
+    g, r = g.to(gdt).to(cuda), r.to(rdt).to(cuda)
+    want = threshold_gate_reference(g, r, tau)
+    before = LAUNCHES["threshold_gate"]
+    got = threshold_gate(g, r, tau)
+    torch.cuda.synchronize()
+    assert LAUNCHES["threshold_gate"] == before + 1
+    for a, b in zip(got[:2], want[:2]):
+        _bits_equal(a, b)
+    assert got[2].dtype == torch.int32 and int(got[2]) == int(want[2])
+    if tau <= 0:
+        assert int(got[2]) == n - 1  # every element but the NaN
+
+
+def test_threshold_gate_keeps_subnormals(cuda):
+    """The build does not flush subnormals to zero: a subnormal sum is
+    sent (tau 0) and kept in the residual (tau 1) as the plain version
+    keeps it."""
+    g = torch.tensor([1e-40, -3e-39, 1e-45, 0.0], device=cuda)
+    r = torch.tensor([1e-40, 0.0, 0.0, 1e-41], device=cuda)
+    s0, n0, c0 = threshold_gate(g, r, 0.0)
+    s1, n1, c1 = threshold_gate(g, r, 1.0)
+    acc = (g.cpu() + r.cpu()).to(cuda)  # the CPU keeps subnormals
+    _bits_equal(s0, acc)
+    _bits_equal(n1, acc)
+    assert (acc[[0, 1, 3]] != 0).all()
+    assert int(c0) == 4 and int(c1) == 0
+
+
+def _close(got, want, atol, rtol=0.0):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# float32: sums of T products in another order (the plain version is a
+# doubling scan); bfloat16: outputs within one rounding step (2^-8 rel.)
+SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 8e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w,with_h0", [(2, 77, 96, True),
+                                           (3, 200, 40, False),
+                                           (1, 4096, 4096, False)])
+def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, t, w, with_h0):
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    a = torch.rand((b, t, w), generator=gen, device=cuda) * 0.2 + 0.8
+    u = torch.randn((b, t, w), generator=gen, device=cuda) * 0.1
+    h0 = torch.randn((b, w), generator=gen, device=cuda) if with_h0 else None
+    a, u = a.to(dtype), u.to(dtype)
+    h0 = None if h0 is None else h0.to(dtype)
+    want = linear_scan_reference(a, u, h0)
+    before = LAUNCHES["rglru_scan"]
+    got = rglru_scan(a, u, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 1
+    atol, rtol = SCAN_TOL[dtype]
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, atol, rtol)
+
+
+def _sequential_scan(a, u, h0):
+    """The recurrence as a plain loop, differentiable by autograd."""
+    h, out = h0, []
+    for i in range(a.shape[1]):
+        h = a[:, i] * h + u[:, i]
+        out.append(h)
+    return torch.stack(out, 1), h
+
+
+def test_linear_scan_gradients_match_autograd(cuda):
+    """da, du, dh0 of the Function (forward and reversed backward scan on
+    the kernel) against autograd through the plain loop, float32."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, t, w = 2, 45, 70  # T not a multiple of 32
+    a = torch.rand((b, t, w), generator=gen, device=cuda) * 0.5 + 0.5
+    u = torch.randn((b, t, w), generator=gen, device=cuda)
+    h0 = torch.randn((b, w), generator=gen, device=cuda)
+    wh = torch.randn((b, t, w), generator=gen, device=cuda)
+    wl = torch.randn((b, w), generator=gen, device=cuda)
+    grads = []
+    for fn in (lambda *x: linear_scan(*x, use_kernel=True), _sequential_scan):
+        xs = [x.clone().requires_grad_() for x in (a, u, h0)]
+        h, hl = fn(*xs)
+        ((h * wh).sum() + (hl * wl).sum()).backward()
+        grads.append([x.grad for x in xs])
+    before = LAUNCHES["rglru_scan"]
+    linear_scan(a, u, h0)[0].sum()  # forward only: one launch
+    assert LAUNCHES["rglru_scan"] == before + 1
+    for got, want in zip(*grads):
+        _close(got, want, 1e-4, 1e-4)
+
+
+# float32: dot products and exponentials in another order / library
+# (CUDA expf vs PyTorch's); bfloat16 output within one rounding step
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window,q_offset", [
+    (2, 9, 3, 200, 200, 64, True, None, 0),     # GQA 9/3, S not a tile multiple
+    (1, 16, 1, 300, 300, 256, True, 48, 0),     # MQA, band, head dim 256
+    (1, 4, 1, 64, 160, 128, True, 40, 96),      # q_offset > 0
+    (2, 4, 2, 96, 96, 32, False, None, 0),      # bidirectional
+    (1, 2, 2, 50, 50, 16, True, 7, 0)])
+def test_flash_attention_fwd_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq,
+                                                  skv, dh, causal, window,
+                                                  q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(sq + dh)
+    q = torch.randn((b, hq, sq, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, skv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, skv, dh), generator=gen, device=cuda).to(dtype)
+    want_o, want_lse = pair_fwd(q, k, v, causal, window, None, q_offset)
+    before = LAUNCHES["flash_attention_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, causal, window, None, q_offset)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before + 1
+    _close(o, want_o, FLASH_TOL[dtype], FLASH_TOL[dtype])
+    _close(lse, want_lse, 1e-4, 1e-5)
+    _close(o.float(), mha_reference(q.float(), k.float(), v.float(), causal,
+                                    window, None, q_offset),
+           FLASH_TOL[dtype], FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24)])
+def test_flash_attention_gradients_match_autograd(cuda, causal, window):
+    """dq, dk, dv of the Function (kernel forward, plain FA2 backward from
+    the kernel's o and lse) against autograd through `mha_reference`,
+    float32, GQA 6/2."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    shapes = [(2, 6, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)]
+    qkv = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    gout = torch.randn(shapes[0], generator=gen, device=cuda)
+    grads = []
+    for fn in (lambda *x: flash_attention(*x, causal, window),
+               lambda *x: mha_reference(*x, causal, window)):
+        xs = [x.clone().requires_grad_() for x in qkv]
+        (fn(*xs) * gout).sum().backward()
+        grads.append([x.grad for x in xs])
+    for got, want in zip(*grads):
+        _close(got, want, 1e-4, 1e-4)
+
+
+def test_training_kernel_wrappers_reject_what_they_do_not_take(cuda):
+    f = lambda *s: torch.zeros(s, device=cuda)
+    with pytest.raises(ValueError):
+        threshold_gate(f(8), f(9), 0.1)
+    with pytest.raises(TypeError):
+        threshold_gate(f(8).double(), f(8).double(), 0.1)
+    with pytest.raises(ValueError):
+        threshold_gate(f(8, 2)[:, 0], f(8), 0.1)
+    with pytest.raises(TypeError):
+        rglru_scan(f(1, 4, 8), f(1, 4, 8).bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan(f(1, 4, 8), f(1, 4, 8), f(2, 8))
+    with pytest.raises(ValueError):  # head dim 48 is not built
+        flash_attention_fwd(f(1, 2, 8, 48), f(1, 1, 8, 48), f(1, 1, 8, 48))
+    with pytest.raises(ValueError):  # Hq not a multiple of Hkv
+        flash_attention_fwd(f(1, 3, 8, 64), f(1, 2, 8, 64), f(1, 2, 8, 64))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(f(1, 2, 64, 8).transpose(2, 3), f(1, 1, 8, 64),
+                            f(1, 1, 8, 64))
