@@ -6,11 +6,17 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/``), then, in order:
 
-  1. prints the card's name and power limit and the kernel build time;
+  1. prints the card's name and power limit and the kernel build time,
+     each kernel's registers as ptxas reports them, and the count of
+     HGMMA (wgmma) instructions in each `flash_attention_fwd`
+     instantiation from `cuobjdump -sass` (bf16 > 0: the tensor cores;
+     float32 0; bf16 D = 256 with no spills);
   2. holds each kernel against its plain PyTorch version on the card at
      the n = 1e6 shapes (exact equality), and times kernel and plain: the
      four wheel kernels (`stage_rows` at row width 8 and at the L2 path's
-     width 9), the mean and L2 forms of `threshold_step` at the drain
+     width 9; `due_dedup` on uniform links, on many rows per link, on
+     every direction of many peers, then on those windows in turn on one
+     scratch), the mean and L2 forms of `threshold_step` at the drain
      window (WW rows) and the event react (pad rows), and `majority_step`
      at pad rows;
   3. runs the engine with its kernels and with their plain versions, both
@@ -35,7 +41,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      scan at (1, 4096, 4096) bf16, `flash_attention_fwd` o and lse at
      RecurrentGemma-9B's (1, 16 / 1, 4096, 256) window-2048 band and
      SmolLM-135M's (4, 9 / 3, 2048, 64) causal GQA, bf16, each beside
-     `scaled_dot_product_attention` on the same inputs;
+     `scaled_dot_product_attention` on the same inputs, with the SM
+     clock and power nvidia-smi samples under each of the two;
   9. the trainer on RecurrentGemma-9B at full width, depth 3 (one
      pattern period), batch 1 x 4096, 4 steps (`run_plain`); its first
      step against the same step with every kernel's plain version; then
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -405,25 +413,45 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     check("majority_step", MS.majority_step, MS.majority_step_reference,
           args, pad, max(1, iters // 4))
 
-    # due_dedup: uniform links, then many rows sharing a link
+    # due_dedup: uniform links, many rows sharing a link, and every
+    # direction of ww / 8 peers hit (a best and an abest on most); then the
+    # scratch again on each window in turn, so every call meets the cells
+    # of another call's epoch
     nl = sizes["links"]
     shared = min(30_000, nl // 24)
-    for links in (nl // 3, shared):
-        flat = torch.from_numpy(rng.integers(0, links, ww) * 3
-                                + rng.integers(0, 3, ww)).to(dev)
+    windows = {}
+    for tag, links, alerts in (("uniform", nl // 3, 0.05),
+                               ("shared", shared, 0.05),
+                               ("all_dirs", ww // 8, 0.3)):
+        if tag == "all_dirs":
+            flat = np.concatenate([rng.permutation(3 * links), rng.integers(
+                0, 3 * links, ww - 3 * links)])
+        else:
+            flat = rng.integers(0, links, ww) * 3 + rng.integers(0, 3, ww)
         acc = rng.random(ww) < 0.6
-        alert = rng.random(ww) < 0.05
-        args = (flat, torch.from_numpy(acc & ~alert).to(dev),
+        alert = rng.random(ww) < alerts
+        args = (torch.from_numpy(flat).to(dev),
+                torch.from_numpy(acc & ~alert).to(dev),
                 torch.from_numpy(acc & alert).to(dev), mk(ww, 0, 50),
                 mk(ww, 0, 50), nl)
-        if links == shared:
-            got, want = W.due_dedup(*args), W.due_dedup_reference(*args)
-            sync(dev)
-            assert max_abs_err(got, want) == 0, "due_dedup (shared links)"
-            log(f"  {'due_dedup':15s} equal with ~{ww // links} rows per link")
-        else:
+        windows[tag] = args
+        if tag == "uniform":
             check("due_dedup", W.due_dedup, W.due_dedup_reference, args,
                   ww, max(1, iters // 4))
+        else:
+            got, want = W.due_dedup(*args), W.due_dedup_reference(*args)
+            sync(dev)
+            assert max_abs_err(got, want) == 0, f"due_dedup ({tag})"
+            log(f"  {'due_dedup':15s} equal ({tag}: ~{ww // links} rows "
+                f"per {'link' if tag == 'shared' else 'peer'})")
+    for tag in ("all_dirs", "uniform", "shared", "all_dirs"):
+        got = W.due_dedup(*windows[tag])
+        want = W.due_dedup_reference(*windows[tag])
+        sync(dev)
+        assert max_abs_err(got, want) == 0, f"due_dedup ({tag}, again)"
+    log(f"  {'due_dedup':15s} equal on 4 more calls, one scratch, "
+        f"windows in turn")
+    del windows
 
     # descent_tail: the narrow-tail batch of a real cycle
     dargs, eng = sizes["descent"]
@@ -434,6 +462,53 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
         f"{int(dargs[4].sum())} live, {steps} row-steps")
     del eng
     return rows
+
+
+# -- phase 1: what the flash kernels were compiled to -------------------------
+
+FLASH_FN = re.compile(r"flash_fwd_(bf16|f32)_kernelILi(\d+)EE")
+
+
+def flash_sass_report(out_dir) -> dict:
+    """Per flash instantiation ("bf16 D256", ...): its HGMMA (wgmma)
+    instructions in `cuobjdump -sass` of the built library, and the
+    registers and spill bytes ptxas reported. Asserts that every bf16
+    instantiation runs on the tensor cores (HGMMA > 0), that the float32
+    ones do not (0), and that bf16 D = 256 spills nothing."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", os.path.join(out_dir, "libflash_attention.so")],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    rep = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mt = FLASH_FN.search(line)
+            name = f"{mt.group(1)} D{mt.group(2)}" if mt else None
+            if name:
+                rep[name] = {"hgmma": 0}
+        elif name and "HGMMA" in line:
+            rep[name]["hgmma"] += 1
+    name = None
+    for line in _build.BUILD_INFO.get("ptxas", {}).get(
+            "flash_attention", "").splitlines():
+        mt = FLASH_FN.search(line)
+        if "Compiling entry function" in line and mt:
+            name = f"{mt.group(1)} D{mt.group(2)}"
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            rep.setdefault(name, {})["spill_bytes"] = int(st) + int(ld)
+        elif name and "Used" in line:
+            rep[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    for d in (16, 32, 64, 128, 256):
+        assert rep[f"bf16 D{d}"]["hgmma"] > 0, f"bf16 D{d}: no HGMMA"
+        assert rep[f"f32 D{d}"]["hgmma"] == 0, f"f32 D{d}: HGMMA"
+    if "spill_bytes" in rep.get("bf16 D256", {}):  # a fresh build only
+        assert rep["bf16 D256"]["spill_bytes"] == 0, "bf16 D256 spills"
+    return rep
 
 
 # -- phase 3: the engine with kernels vs with plain versions ---------------
@@ -743,10 +818,40 @@ def band_pairs(sq: int, causal: bool, window) -> int:
     return tot
 
 
+def clocks_under(fn, dev, seconds: float = 2.0):
+    """(median SM clock in MHz, median power draw in W) that nvidia-smi
+    samples every 50 ms while `fn` runs back to back for `seconds`; None
+    off the card. Device times of one kernel differ between the cards of
+    a pool: this says whether the clock moved with them."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    smi = subprocess.Popen(
+        ["nvidia-smi", "-i", str(dev.index or 0), "-lms", "50",
+         "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize(dev)
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.splitlines()
+            if line.count(",") == 1 and "N/A" not in line]
+    if not rows:
+        return None
+    mid = lambda xs: sorted(xs)[len(xs) // 2]
+    return mid([r[0] for r in rows]), mid([r[1] for r in rows])
+
+
 def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
     """One PyTorch call computing the same attention (the yardstick):
-    (ms, backend) of `scaled_dot_product_attention`. Causal GQA uses
-    is_causal; a band passes an explicit boolean mask, and the first
+    (ms, backend, the call) of `scaled_dot_product_attention`. Causal GQA
+    uses is_causal; a band passes an explicit boolean mask, and the first
     backend that accepts it is named."""
     import warnings
 
@@ -764,15 +869,15 @@ def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
         kw["is_causal"] = causal
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        try:
+        def call(be=be):
             # a backend that refuses the inputs warns why, then raises
             with sdpa_kernel(be), warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
-                Fn.scaled_dot_product_attention(q, k, v, **kw)
-                sync(dev)
-                ms = time_ms(lambda: Fn.scaled_dot_product_attention(
-                    q, k, v, **kw), dev, iters)
-            return ms, be.name
+                return Fn.scaled_dot_product_attention(q, k, v, **kw)
+        try:
+            call()
+            sync(dev)
+            return time_ms(call, dev, iters), be.name, call
         except RuntimeError:
             continue
     raise RuntimeError("no SDPA backend ran")
@@ -880,12 +985,17 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
         pairs = band_pairs(sq, True, window) * bb * hq
         io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
         lib = sdpa_time(dev, q, k, v, True, window, iters)
-        record("flash_attention_fwd", lambda: flash_attention_fwd(
-            q, k, v, True, window), lambda: pair_fwd(q, k, v, True, window,
-                                                     None),
-            err, io, 4 * dh * pairs, BF16_FLOPS_PER_S, max(1, iters // 4),
-            tag, library=lib)
-        rows["flash_attention_fwd"]["shapes"][tag]["lse_max_abs_err"] = err_l
+        kern = lambda: flash_attention_fwd(q, k, v, True, window)
+        record("flash_attention_fwd", kern, lambda: pair_fwd(
+            q, k, v, True, window, None), err, io, 4 * dh * pairs,
+            BF16_FLOPS_PER_S, max(1, iters // 4), tag, library=lib[:2])
+        fig = rows["flash_attention_fwd"]["shapes"][tag]
+        fig["lse_max_abs_err"] = err_l
+        fig["sm_mhz_power_w"] = {"kernel": clocks_under(kern, dev),
+                                 "library": clocks_under(lib[2], dev)}
+        log(f"    SM clock (MHz), power (W) under the kernel "
+            f"{fig['sm_mhz_power_w']['kernel']}, under SDPA "
+            f"{fig['sm_mhz_power_w']['library']}")
         del q, k, v, got, want
     return rows
 
@@ -1084,8 +1194,12 @@ def main() -> int:
         f"(nvcc {_build.BUILD_INFO.get('seconds', 0.0):.1f} s) into {out}")
     for src, rep in _build.BUILD_INFO.get("ptxas", {}).items():
         for line in rep.splitlines():
-            if "Used" in line:
+            if "Used" in line or "wgmma" in line:
                 log(f"  {src}: {line.strip()}")
+    sass = flash_sass_report(out)
+    log("  flash_attention_fwd HGMMA instructions per instantiation "
+        "(cuobjdump -sass; bf16 on the tensor cores, f32 on the CUDA "
+        "cores): " + json.dumps(sass, sort_keys=True))
 
     log("phase 2: kernels vs plain versions at the n = 1e6 shapes")
     # the first profiler sessions of a process can drop device events:
@@ -1156,6 +1270,7 @@ def main() -> int:
     log("phase 8: the training substrate's kernels vs plain versions at "
         "the trainer's shapes")
     rows.update(phase_train_kernels(dev, iters=20))
+    rows["flash_attention_fwd"]["sass"] = sass
     torch.cuda.empty_cache()
     log("phase 9: RecurrentGemma-9B, full width, depth 3, batch 1 x 4096, "
         "run_plain, 4 steps")

@@ -9,38 +9,71 @@
 // head h / (Hq / Hkv); query row i sits at position q_offset + i and sees
 // key j iff (not causal or j <= pos) and (no window or j > pos - window).
 // Running (m, l, acc) in float32, masked scores at -1e30, l clamped at
-// 1e-30, o cast to q's type, lse = m + log(l) in float32.
+// 1e-30, o cast to q's type, lse = m + log(l) in float32. Both kernels
+// visit only the visible key tiles (the Pallas skip rule, :55-59): causal
+// skips tiles that start after the tile's last row, a window skips tiles
+// that end at or before its first row's window.
 //
-// Design (simple first; tensor cores are later work): one CTA of 4 warps
-// per (b * Hq + h, 32-row q tile); each warp owns 8 rows. The CTA loops
-// over the visible 32-key tiles only (the Pallas skip rule, :55-59):
-// causal skips tiles that start after the tile's last row, a window skips
-// tiles that end at or before its first row's window. Q, K and V tiles are
-// staged in shared memory as float32 (K rows padded by 4 floats so each
-// lane's float4 reads of its own key row hit distinct banks). Scores: lane
-// j computes the dot products of key j with the warp's 8 rows; the row max
-// and sum are warp shuffles; P.V: each lane accumulates D/32 output
-// columns of the 8 rows, taking p_j by shuffle. Products run in float32 on
-// the CUDA cores. Edges of Sq and Skv are guarded (rows not stored, keys
-// masked and zero-filled). Head dims 16, 32, 64, 128 and 256 are built;
-// D = 256 needs 97 KB of shared memory, above the 48 KB default, so the
-// kernel opts in to dynamic shared memory.
+// Two routes, by dtype:
 //
-// Bound on the H100: operations (4 D flops per visible (q, k) pair) over
-// bytes (q, k, v read, o and lse written once), at the 67 TFLOP/s float32
-// rate these products use.
+// bfloat16: the tensor cores (flash_fwd_bf16_kernel). Bound on the H100 by
+// operations, 4 D flops per visible (q, k) pair at the 989 TFLOP/s dense
+// bf16 rate; below it the per-score softmax work (one exp each on the
+// 16-per-clock special-function unit) is the second limit at small D.
+// Design: a CTA of kWG = 2 warpgroups owns 128 q rows of one (b, q head),
+// 64 rows per warpgroup; they share a two-stage ring of 64-key K and V
+// tiles in shared memory. Every tile (Q, K, V) is stored in the 128-byte
+// swizzled layout the wgmma descriptors name: a D-wide row is cut into
+// 64-column (128-byte) blocks, each block is rows x 128 bytes, and the
+// 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its row, on
+// 1024-byte-aligned bases. All 256 threads fill the ring with cp.async
+// (zero-filling rows past Sq / Skv and the columns of D < 64, which run
+// padded to 64), one tile ahead of the compute, so loading the next tile
+// overlaps both warpgroups' work on this one. Per tile and warpgroup:
+// S = Q K^T by wgmma m64n64k16 (Q and K K-major from shared memory, f32
+// accumulators in registers); the online softmax in registers, each row's
+// max reduced over the quad of threads that hold it (two shuffles), the
+// row sums kept per thread until the end; masks only on tiles that cut
+// the diagonal, the window edge or the ragged edge; P rounded to bf16 in
+// place, the f32 accumulator fragment being the A-operand register
+// fragment as it stands; O += P V by wgmma with P from registers and V
+// from shared memory as an MN-major B operand (the instruction's
+// transpose bit: V stays (keys, D) row-major). O lives in registers, 64 x
+// D per warpgroup: D / 2 floats a thread (128 at D = 256). Rounding P to
+// bf16 before P V is the one rounding the float32 route does not make;
+// l sums the unrounded P. The heaviest q tiles (last under causal) are
+// launched first.
+//
+// float32: the CUDA cores (flash_fwd_f32_kernel; the tensor cores would
+// only give TF32). One CTA of 4 warps per (b * Hq + h, 32-row q tile);
+// each warp owns 8 rows. Q, K and V tiles are staged in shared memory as
+// float32 (K rows padded by 4 floats so each lane's float4 reads of its
+// own key row hit distinct banks). Scores: lane j computes the dot
+// products of key j with the warp's 8 rows; the row max and sum are warp
+// shuffles; P.V: each lane accumulates D/32 output columns of the 8 rows,
+// taking p_j by shuffle. Bound by operations at the 67 TFLOP/s float32
+// rate; D = 256 needs 97 KB of shared memory (dynamic, opted in).
+//
+// Both: edges of Sq and Skv are guarded (rows not stored, keys masked and
+// zero-filled); head dims 16, 32, 64, 128 and 256 are built.
+#include <cmath>
+
 #include "common.cuh"
 #include "dtype.cuh"
 
 namespace {
 
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---- float32: the CUDA-core kernel -----------------------------------------
+
 constexpr int kBQ = 32, kBK = 32, kWarps = 4, kRows = kBQ / kWarps;
 constexpr int kFlashThreads = kWarps * 32;
-constexpr float kNeg = -1e30f;
 
 // K rows are padded by 4 floats (see above)
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t f32_smem_bytes() {
   return sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
 }
 
@@ -58,12 +91,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int hq, int hkv, int sq, int skv,
-                 float scale, int causal, int window, int q_offset) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                     float scale, int causal, int window, int q_offset) {
   constexpr int KS = D + 4;
   constexpr int NI = (D + 31) / 32;  // output columns per lane
   extern __shared__ __align__(16) float smem[];
@@ -74,15 +107,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const int kvh = bh / hq * hkv + (bh % hq) / (hq / hkv);
-  const T* qp = q + static_cast<int64_t>(bh) * sq * D;
-  const T* kp = k + static_cast<int64_t>(kvh) * skv * D;
-  const T* vp = v + static_cast<int64_t>(kvh) * skv * D;
+  const float* qp = q + static_cast<int64_t>(bh) * sq * D;
+  const float* kp = k + static_cast<int64_t>(kvh) * skv * D;
+  const float* vp = v + static_cast<int64_t>(kvh) * skv * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < kBQ * D; i += kFlashThreads) {
     const int r = i / D;
-    qs[i] = q0 + r < sq ? rt::to_f32(qp[static_cast<int64_t>(q0) * D + i])
-                        : 0.0f;
+    qs[i] = q0 + r < sq ? qp[static_cast<int64_t>(q0) * D + i] : 0.0f;
   }
 
   float acc[kRows][NI], m[kRows], l[kRows];
@@ -109,8 +141,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / D, d = i % D;
       const bool in = k0 + j < skv;
       const int64_t g = static_cast<int64_t>(k0) * D + i;
-      ks[j * KS + d] = in ? rt::to_f32(kp[g]) : 0.0f;
-      vs[i] = in ? rt::to_f32(vp[g]) : 0.0f;
+      ks[j * KS + d] = in ? kp[g] : 0.0f;
+      vs[i] = in ? vp[g] : 0.0f;
     }
     __syncthreads();
 
@@ -174,64 +206,390 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + warp * kRows + r;
     if (row >= sq) continue;
     const float ll = fmaxf(l[r], 1e-30f);
-    T* orow = o + (static_cast<int64_t>(bh) * sq + row) * D;
+    float* orow = o + (static_cast<int64_t>(bh) * sq + row) * D;
 #pragma unroll
     for (int c = 0; c < NI; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) orow[d] = rt::from_f32<T>(acc[r][c] / ll);
+      if (d < D) orow[d] = acc[r][c] / ll;
     }
     if (lane == 0) lse[static_cast<int64_t>(bh) * sq + row] = m[r] + logf(ll);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int b, int hq, int hkv, int sq, int skv, float scale, int causal,
-           int window, int q_offset, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  static bool opted_in = false;  // per instantiation, once per process
-  if (bytes > 48 * 1024 && !opted_in) {
+// ---- bfloat16: the tensor-core kernel --------------------------------------
+
+constexpr int kWG = 2;                 // consumer warpgroups per CTA
+constexpr int kTQ = 64 * kWG;          // q rows per CTA
+constexpr int kTK = 64;                // keys per tile
+constexpr int kTC_threads = 128 * kWG;
+
+template <int D>
+struct TcShape {
+  static constexpr int DP = D < 64 ? 64 : D;  // head dim padded to a block
+  static constexpr int NB = DP / 64;          // 64-column (128-byte) blocks
+  static constexpr uint32_t Q_BYTES = kTQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = kTK * DP * 2;  // one K or V tile
+  // Q, two stages of (K, V), and slack to align the base to 1024 bytes
+  static constexpr size_t SMEM = Q_BYTES + 4 * KV_BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16)
+         | (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32)
+         | (1ull << 62);
+}
+
+// rows [row0, row0 + R) of a contiguous (rows, D) bf16 matrix into the
+// swizzled layout at `dst`: rows at or past `nrows` and the padding columns
+// of D < 64 are zero-filled (cp.async with a source size of 0)
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* g, int row0,
+                                          int nrows, int tid) {
+  constexpr int CPR = TcShape<D>::DP / 8;  // 16-byte chunks per row
+  constexpr int N = R * CPR;
+  static_assert(N % kTC_threads == 0, "tile chunks split evenly");
+#pragma unroll
+  for (int it = 0; it < N / kTC_threads; ++it) {
+    const int idx = tid + it * kTC_threads;
+    const int r = idx / CPR, c = idx % CPR;
+    const bool in = row0 + r < nrows && c * 8 < D;
+    const __nv_bfloat16* src =
+        in ? g + (static_cast<int64_t>(row0) + r) * D + c * 8 : g;
+    const uint32_t a = dst + (c >> 3) * (R * 128) + r * 128
+                       + (((c & 7) ^ (r & 7)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(a), "l"(src), "r"(in ? 16 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep reads of the accumulators after the wait that completes them
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= A B, m64n64k16, A and B K-major from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16, A (4 registers of bf16 pairs) from registers, B
+// MN-major from shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The m64nN f32 accumulator layout: in warpgroup thread t (warp w = t / 32,
+// lane l), register i holds row 16 w + l / 4 + 8 ((i >> 1) & 1) and column
+// 8 (i >> 2) + 2 (l % 4) + (i & 1). Rows r0 = 16 w + l / 4 and r0 + 8 are
+// the thread's two rows (h = 0, 1 below).
+template <int D>
+__global__ void __launch_bounds__(kTC_threads, 1)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int hq, int hkv, int sq, int skv, float scale,
+                      int causal, int window, int q_offset) {
+  using S = TcShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, kv_s = base + S::Q_BYTES;  // stage st: K at
+  // kv_s + 2 st KV_BYTES, V right after it
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTQ;  // heaviest tiles first
+  const int bh = blockIdx.y;
+  const int kvh = bh / hq * hkv + (bh % hq) / (hq / hkv);
+  const __nv_bfloat16* qp = q + static_cast<int64_t>(bh) * sq * D;
+  const __nv_bfloat16* kp = k + static_cast<int64_t>(kvh) * skv * D;
+  const __nv_bfloat16* vp = v + static_cast<int64_t>(kvh) * skv * D;
+
+  // visible key tiles: [t_begin, t_end) for the CTA's rows, [w_begin,
+  // w_end) for this warpgroup's rows (positions w_lo..w_hi)
+  const int nk = (skv + kTK - 1) / kTK;
+  auto tiles = [&](int lo, int hi, int& b, int& e) {
+    b = 0;
+    e = nk;
+    if (causal) e = min(nk, hi / kTK + 1);
+    if (window > 0 && lo - window + 1 > 0) b = min(nk, (lo - window + 1) / kTK);
+  };
+  const int rows = min(kTQ, sq - q0);
+  int t_begin, t_end;
+  tiles(q_offset + q0, q_offset + q0 + rows - 1, t_begin, t_end);
+  const int w_lo = q_offset + q0 + 64 * wg;
+  const int w_hi = q_offset + q0 + min(64 * (wg + 1), rows) - 1;
+  int w_begin, w_end;
+  tiles(w_lo, w_hi, w_begin, w_end);
+  if (w_hi < w_lo) w_end = w_begin;  // no rows of this warpgroup left
+
+  float acc[S::NB][32], m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int b = 0; b < S::NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.0f;
+  const float sl2 = scale * kLog2e;
+
+  if (t_begin < t_end) {
+    load_tile<D, kTQ>(q_s, qp, q0, sq, tid);
+    load_tile<D, kTK>(kv_s, kp, t_begin * kTK, skv, tid);
+    load_tile<D, kTK>(kv_s + S::KV_BYTES, vp, t_begin * kTK, skv, tid);
+    cp_async_commit();
+  }
+  for (int kt = t_begin; kt < t_end; ++kt) {
+    const uint32_t ks = kv_s + ((kt - t_begin) & 1) * 2 * S::KV_BYTES;
+    if (kt + 1 < t_end) {  // the next tile into the other stage
+      const uint32_t nx = kv_s + ((kt + 1 - t_begin) & 1) * 2 * S::KV_BYTES;
+      load_tile<D, kTK>(nx, kp, (kt + 1) * kTK, skv, tid);
+      load_tile<D, kTK>(nx + S::KV_BYTES, vp, (kt + 1) * kTK, skv, tid);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();  // this tile (and Q) has landed
+    fence_async_smem();
+    __syncthreads();
+
+    if (kt >= w_begin && kt < w_end) {
+      const int k0 = kt * kTK;
+      // S = Q K^T over D / 16 steps of 16 columns
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t blk = kk >> 2;  // 64-column block, 16-column step
+        const uint64_t da = sw128_desc(
+            q_s + blk * (kTQ * 128) + wg * (64 * 128) + (kk & 3) * 32, 16,
+            1024);
+        const uint64_t db =
+            sw128_desc(ks + blk * (kTK * 128) + (kk & 3) * 32, 16, 1024);
+        wgmma_ss(s, da, db, kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      reg_fence(s);
+
+      // mask only where the tile cuts the diagonal, window or ragged edge
+      const bool full = k0 + kTK <= skv && (!causal || k0 + kTK - 1 <= w_lo)
+                        && (window <= 0 || k0 > w_hi - window);
+      if (!full) {
+        const int r0 = w_lo + warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          bool ok = col < skv;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && col > row - window;
+          if (!ok) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax: the two rows' maxima over the quad holding them
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float mb[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * scale);
+        alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+        m[h] = m_new;
+        mb[h] = m_new * kLog2e;
+        l[h] *= alpha[h];
+      }
+      uint32_t pa[4][4];  // P in bf16, as the A fragments of 4 key steps
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        const float p0 = exp2f(fmaf(s[i], sl2, -mb[h]));
+        const float p1 = exp2f(fmaf(s[i + 1], sl2, -mb[h]));
+        l[h] += p0 + p1;
+        pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int b = 0; b < S::NB; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[b][i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: 4 key steps x NB column blocks
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk)
+#pragma unroll
+        for (int b = 0; b < S::NB; ++b)
+          wgmma_rs(acc[b], pa[kk],
+                   sw128_desc(ks + S::KV_BYTES + b * (kTK * 128)
+                                  + kk * (16 * 128),
+                              kTK * 128, 1024));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int b = 0; b < S::NB; ++b) reg_fence(acc[b]);
+    }
+    __syncthreads();  // the stage is consumed: the next load may refill it
+  }
+
+  // epilogue: the quad's partial row sums, then o = acc / l and lse
+  const int r0 = q0 + 64 * wg + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = r0 + 8 * h;
+    if (row >= sq) continue;
+    const float ll = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + (static_cast<int64_t>(bh) * sq + row) * D;
+#pragma unroll
+    for (int b = 0; b < S::NB; ++b)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // 8-column groups of the block
+        const int col = b * 64 + 8 * j + 2 * (lane & 3);
+        if (col < D) {
+          const int i = 4 * j + 2 * h;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[b][i] / ll, acc[b][i + 1] / ll);
+        }
+      }
+    if ((lane & 3) == 0)
+      lse[static_cast<int64_t>(bh) * sq + row] = m[h] + logf(ll);
+  }
+}
+
+template <typename K>
+int opt_in_smem(K kernel, size_t bytes, bool& done) {
+  if (bytes > 48 * 1024 && !done) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = true;
+    done = true;
   }
-  const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
-  flash_fwd_kernel<T, D><<<grid, kFlashThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      hq, hkv, sq, skv, scale, causal, window, q_offset);
   return 0;
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             void* lse, int b, int hq, int hkv, int sq, int skv, float scale,
-             int causal, int window, int q_offset, cudaStream_t s) {
-  switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                           causal, window, q_offset, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                           causal, window, q_offset, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                           causal, window, q_offset, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                            causal, window, q_offset, s);
-    case 256:
-      return launch<T, 256>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                            causal, window, q_offset, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int b, int hq, int hkv, int sq, int skv,
+               float scale, int causal, int window, int q_offset,
+               cudaStream_t stream) {
+  constexpr size_t bytes = f32_smem_bytes<D>();
+  static bool opted_in = false;  // per instantiation, once per process
+  if (const int rc = opt_in_smem(flash_fwd_f32_kernel<D>, bytes, opted_in))
+    return rc;
+  const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
+  flash_fwd_f32_kernel<D><<<grid, kFlashThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), hq, hkv, sq, skv, scale, causal, window,
+      q_offset);
+  return 0;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int b, int hq, int hkv, int sq, int skv,
+                float scale, int causal, int window, int q_offset,
+                cudaStream_t stream) {
+  constexpr size_t bytes = TcShape<D>::SMEM;
+  static bool opted_in = false;
+  if (const int rc = opt_in_smem(flash_fwd_bf16_kernel<D>, bytes, opted_in))
+    return rc;
+  const dim3 grid((sq + kTQ - 1) / kTQ, b * hq);
+  flash_fwd_bf16_kernel<D><<<grid, kTC_threads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), hq, hkv, sq, skv, scale, causal, window,
+      q_offset);
+  return 0;
+}
+
+template <int D>
+int launch(int bf16, const void* q, const void* k, const void* v, void* o,
+           void* lse, int b, int hq, int hkv, int sq, int skv, float scale,
+           int causal, int window, int q_offset, cudaStream_t s) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                               causal, window, q_offset, s)
+              : launch_f32<D>(q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                              causal, window, q_offset, s);
 }
 
 }  // namespace
 
-// bf16: 1 when q, k, v and o are bfloat16, 0 when float32; lse is float32.
+// bf16: 1 when q, k, v and o are bfloat16 (tensor cores; 16-byte aligned
+// rows), 0 when float32 (CUDA cores); lse is float32.
 // d in {16, 32, 64, 128, 256}; window <= 0 means no window.
 RT_EXPORT int rt_flash_attention_fwd(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
@@ -240,11 +598,30 @@ RT_EXPORT int rt_flash_attention_fwd(const void* q, const void* k,
                                      int window, int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b * hq > 0 && sq > 0) {
-    const int rc =
-        bf16 ? launch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, hq, hkv, sq, skv,
-                                       scale, causal, window, q_offset, s)
-             : launch_d<float>(d, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
-                               causal, window, q_offset, s);
+    int rc;
+    switch (d) {
+      case 16:
+        rc = launch<16>(bf16, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                        causal, window, q_offset, s);
+        break;
+      case 32:
+        rc = launch<32>(bf16, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                        causal, window, q_offset, s);
+        break;
+      case 64:
+        rc = launch<64>(bf16, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                        causal, window, q_offset, s);
+        break;
+      case 128:
+        rc = launch<128>(bf16, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                         causal, window, q_offset, s);
+        break;
+      case 256:
+        rc = launch<256>(bf16, q, k, v, o, lse, b, hq, hkv, sq, skv, scale,
+                         causal, window, q_offset, s);
+        break;
+      default: rc = static_cast<int>(cudaErrorInvalidValue);
+    }
     if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,13 +1,21 @@
-"""`flash_attention_fwd` (the CUDA kernel for CUDA tensors, the plain
+"""`flash_attention_fwd` (the CUDA kernels for CUDA tensors, the plain
 pair schedule for CPU tensors) and the differentiable `flash_attention`.
 
 Replaces the Pallas kernel `flash_attention_fwd`
 (src/repro/kernels/flash_attention/flash_attention.py:101). CUDA source:
-``kernels/csrc/flash_attention.cu``: one CTA per (batch x q head, 32-row
-q tile) over the visible 32-key tiles, float32 online softmax on the CUDA
-cores; GQA reads kv head h / (Hq / Hkv) without repeating heads. It also
-writes the per-row log-sum-exp, which the backward reads. Bound on the
-H100 by operations at the float32 rate it computes in.
+``kernels/csrc/flash_attention.cu``, two routes by dtype, both visiting
+only the visible key tiles and reading kv head h / (Hq / Hkv) without
+repeating heads, both writing the per-row log-sum-exp the backward reads:
+
+* bfloat16 (the trainer's path): the tensor cores. A CTA of two
+  warpgroups owns 128 q rows and streams 64-key K/V tiles through a
+  two-stage cp.async ring in 128-byte-swizzled shared memory;
+  S = Q K^T and O += P V are `wgmma` (P from registers, rounded to
+  bf16; V as an MN-major operand), the online softmax stays in
+  registers. Bound by operations at the 989 TFLOP/s bf16 rate.
+* float32: the CUDA cores (the tensor cores would only give TF32): one
+  CTA per 32-row q tile over 32-key tiles, float32 throughout. Bound by
+  operations at the 67 TFLOP/s float32 rate.
 
 The backward is the plain FA2 pair schedule (`xla_ref.pair_bwd`) from
 the saved (q, k, v, o, lse), as the reference recomputes its backward
@@ -35,7 +43,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None, q_offset: int = 0):
     """(o (B, Hq, Sq, D) in q's dtype, lse (B, Hq, Sq) float32). On CUDA:
     contiguous q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) of one dtype
-    (float32 or bfloat16), Hq % Hkv == 0, D in `HEAD_DIMS`."""
+    (bfloat16, 16-byte aligned: the tensor-core kernel; float32: the
+    CUDA-core kernel), Hq % Hkv == 0, D in `HEAD_DIMS`."""
     if not on_cuda(q):
         return pair_fwd(q, k, v, causal, window, scale, q_offset)
     b, hq, sq, dh = q.shape
@@ -60,6 +69,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"{t.dtype}; want float32 or bfloat16, one for all")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_fwd: {name} is not contiguous")
+        if q.dtype == torch.bfloat16 and ptr(t) % 16:  # 16-byte copies
+            raise ValueError(f"flash_attention_fwd: {name} is not 16-byte "
+                             f"aligned")
     if scale is None:
         scale = dh ** -0.5
     o = torch.empty_like(q)

@@ -87,6 +87,7 @@ def launched(kernel: str, rc: int) -> None:
 P = ctypes.c_void_p  # device pointer / stream argument
 I64 = ctypes.c_int64
 I32 = ctypes.c_int32
+U32 = ctypes.c_uint32
 F32 = ctypes.c_float
 
 

@@ -12,25 +12,37 @@ aforce from them.
 Replaces the Pallas kernel `due_dedup_kernel`
 (src/repro/kernels/wheel/due_dedup.py:78), which elects window-locally
 with an O(WW^2) all-pairs max. CUDA source: ``kernels/csrc/due_dedup.cu``
-fills the planes with atomicMax instead — max does not depend on order,
-so the bits are the reference's and deterministic — and resets only the
-cells the window touches, so the work is O(WW). On the H100 it is bound
-by bytes. The two int32 planes are scratch kept by this module per
-(device, nl), so a cycle allocates none.
+takes the maxima with atomicMax instead — max does not depend on order,
+so the bits are the reference's and deterministic — in O(WW) work. On
+the H100 it is bound by the scattered scratch it touches, so each peer's
+3 directions x {best, abest} are one 32-byte record (one sector per row
+instead of a cell in each of two planes), and every cell is stamped with
+the call's epoch (``(epoch << vb) | (i + 1)``, vb the bit width of WW):
+a cell of an earlier call reads as none, so no pass clears the scratch
+and a call is two dependent launches (atomics, then read back and
+finalize).
+
+The scratch is kept by this module per (device, nl), so a cycle
+allocates none: `_PLANES` maps the key to ``[records, epoch, vb]`` —
+``records`` (nl / 3, 8) int32 (bit patterns of uint32 cells; 32 bytes a
+peer), the last call's epoch and vb. When the epoch would overflow its
+32 - vb bits, or vb changes, the call zeroes the records first (one
+memset) and restarts at epoch 1.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.kernels.wheel._common import (I64, P, bind, check_args,
-                                               launched, on_cuda, ptr,
-                                               stream_of)
+from repro_torch.kernels.wheel._common import (I32, I64, P, U32, bind,
+                                               check_args, launched, on_cuda,
+                                               ptr, stream_of)
 
 NDIR = 3
 
-_PLANES: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_REC = 8  # uint32 cells per peer record
+_PLANES: Dict[Tuple[torch.device, int], List] = {}
 
 
 def due_dedup_reference(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
@@ -63,7 +75,7 @@ def due_dedup_reference(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
     return winner, loser, fresh, alert_write, is_rep, aforce
 
 
-_ARGS = [P, P, P, P, P, I64, I64] + [P] * 9
+_ARGS = [P, P, P, P, P, I64, I64, P, U32, I32, I32] + [P] * 7
 
 
 def due_dedup(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
@@ -82,17 +94,20 @@ def due_dedup(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
         raise ValueError("due_dedup: every input must be (WW,)")
     if nl % NDIR or ww >= 2**31:
         raise ValueError("due_dedup: nl must be a multiple of 3, WW < 2^31")
-    key = (dev, int(nl))
-    planes = _PLANES.get(key)
-    if planes is None:
-        planes = tuple(torch.empty(nl, dtype=torch.int32, device=dev)
-                       for _ in range(2))
-        _PLANES[key] = planes
+    st = _PLANES.get((dev, int(nl)))
+    if st is None:
+        st = [torch.empty((nl // NDIR, _REC), dtype=torch.int32, device=dev),
+              0, 0]
+        _PLANES[(dev, int(nl))] = st
+    vb = max(ww, 1).bit_length()  # window index + 1 < 2^vb
+    reset = vb != st[2] or st[1] + 1 >= 1 << (32 - vb)
+    epoch = 1 if reset else st[1] + 1
     outs = [torch.empty(ww, dtype=torch.bool, device=dev) for _ in range(5)]
     aforce = torch.empty((ww, NDIR), dtype=torch.bool, device=dev)
     fn = bind("due_dedup", "rt_due_dedup", _ARGS)
     launched("due_dedup", fn(
         ptr(flat), ptr(acc_d), ptr(acc_a), ptr(w_seq), ptr(link_seq), ww,
-        int(nl), ptr(planes[0]), ptr(planes[1]), *map(ptr, outs),
+        int(nl), ptr(st[0]), epoch, vb, int(reset), *map(ptr, outs),
         ptr(aforce), stream_of(dev)))
+    st[1], st[2] = epoch, vb  # only once the launch went through
     return (*outs, aforce)

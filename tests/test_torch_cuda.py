@@ -157,23 +157,59 @@ def test_majority_step_kernel_matches_plain(cuda):
     _same(got, want)
 
 
-@pytest.mark.parametrize("links", [NL_1E6 // 3, 30_000])
-def test_due_dedup_kernel_matches_plain(cuda, links):
-    """2^21 links spreads the window; 30,000 puts ~9 rows on each link."""
-    rng = np.random.default_rng(links)
-    flat = rng.integers(0, links, WW_1E6) * 3 + rng.integers(0, 3, WW_1E6)
-    acc = rng.random(WW_1E6) < 0.6
-    alert = rng.random(WW_1E6) < 0.2
+def _dedup_window(ww, links, seed, alerts=0.2):
+    """A drain window of `ww` rows over `links` peers' links; links=0: the
+    first 3 (ww // 8) rows hit every direction of ww // 8 peers once, the
+    rest fall on them at random."""
+    rng = np.random.default_rng(seed)
+    if links:
+        flat = rng.integers(0, links, ww) * 3 + rng.integers(0, 3, ww)
+    else:
+        nd = 3 * (ww // 8)
+        flat = np.concatenate([rng.permutation(nd),
+                               rng.integers(0, nd, ww - nd)])
+    acc = rng.random(ww) < 0.6
+    alert = rng.random(ww) < alerts
     args = [torch.from_numpy(flat), torch.from_numpy(acc & ~alert),
             torch.from_numpy(acc & alert),
-            torch.from_numpy(rng.integers(0, 50, WW_1E6).astype(np.int32)),
-            torch.from_numpy(rng.integers(0, 50, WW_1E6).astype(np.int32))]
-    args = [a.to(cuda) for a in args]
-    want = due_dedup_reference(*args, nl=NL_1E6)
-    for _ in range(2):  # the scratch planes are reused across calls
-        got = due_dedup(*args, nl=NL_1E6)
+            torch.from_numpy(rng.integers(0, 50, ww).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 50, ww).astype(np.int32))]
+    return [a.cuda() for a in args]
+
+
+@pytest.mark.parametrize("links", [NL_1E6 // 3, 30_000, 0])
+def test_due_dedup_kernel_matches_plain(cuda, links):
+    """2^21 links spreads the window; 30,000 puts ~9 rows on each link;
+    0 hits every direction of WW / 8 peers (~8 rows a peer, a best and an
+    abest on most directions). The scratch is reused across calls: the
+    window, again, another window (it meets the first call's cells), the
+    first again."""
+    windows = [_dedup_window(WW_1E6, links, links + i, 0.3 if not links
+                             else 0.2) for i in range(2)]
+    wants = [due_dedup_reference(*a, nl=NL_1E6) for a in windows]
+    for i in (0, 0, 1, 0):
+        got = due_dedup(*windows[i], nl=NL_1E6)
         torch.cuda.synchronize()
-        _same(got, want)
+        _same(got, wants[i])
+
+
+def test_due_dedup_scratch_resets(cuda):
+    """One scratch through a change of window width (the stamp's value
+    bits change: the records are zeroed) and past its last epoch (zeroed,
+    epoch 1 again): every call still equals the plain version."""
+    import importlib
+
+    mod = importlib.import_module("repro_torch.kernels.wheel.due_dedup")
+    nl = 3 * 50_000
+    small, big = (_dedup_window(ww, 50_000, ww) for ww in (1000, WW_1E6))
+    want_s, want_b = (due_dedup_reference(*a, nl=nl) for a in (small, big))
+    for args, want in ((big, want_b), (small, want_s), (big, want_b)):
+        _same(due_dedup(*args, nl=nl), want)
+    st = next(v for k, v in mod._PLANES.items() if k[1] == nl)
+    st[1] = (1 << (32 - st[2])) - 2  # the next call takes the last epoch
+    for _ in range(3):
+        _same(due_dedup(*big, nl=nl), want_b)
+    assert st[1] == 2  # the last epoch, wrapped to 1, then one more
 
 
 @pytest.mark.parametrize("roww", [8, 9])  # majority/mean; L2 with D = 2
@@ -454,7 +490,13 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
     (1, 16, 1, 300, 300, 256, True, 48, 0),     # MQA, band, head dim 256
     (1, 4, 1, 64, 160, 128, True, 40, 96),      # q_offset > 0
     (2, 4, 2, 96, 96, 32, False, None, 0),      # bidirectional
-    (1, 2, 2, 50, 50, 16, True, 7, 0)])
+    (1, 2, 2, 50, 50, 16, True, 7, 0),
+    # the tensor-core route's tile edges (64 keys, 128 q rows a CTA):
+    (1, 4, 2, 130, 130, 128, True, None, 0),    # S past two tiles
+    (2, 9, 3, 100, 200, 64, True, 24, 100),     # GQA, q_offset, window < tile
+    (1, 16, 1, 130, 65, 256, True, 7, 0),       # MQA; rows 72+ see no key
+    (1, 2, 1, 200, 200, 32, False, 20, 0),      # bidirectional window
+    (2, 4, 4, 96, 96, 16, True, 100, 0)])       # window past S
 def test_flash_attention_fwd_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq,
                                                   skv, dh, causal, window,
                                                   q_offset):
@@ -512,3 +554,6 @@ def test_training_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         flash_attention_fwd(f(1, 2, 64, 8).transpose(2, 3), f(1, 1, 8, 64),
                             f(1, 1, 8, 64))
+    with pytest.raises(ValueError):  # bf16 rows are copied 16 bytes at once
+        b = lambda *s: f(s[0] * s[1] * s[2] * s[3] + 1).bfloat16()[1:].view(s)
+        flash_attention_fwd(b(1, 2, 8, 64), b(1, 1, 8, 64), b(1, 1, 8, 64))
