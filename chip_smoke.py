@@ -17,8 +17,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      width 9; `due_dedup` on uniform links, on many rows per link, on
      every direction of many peers, then on those windows in turn on one
      scratch), the mean and L2 forms of `threshold_step` at the drain
-     window (WW rows) and the event react (pad rows), and `majority_step`
-     at pad rows;
+     window (WW rows) and the event react (pad rows), `majority_step`
+     at pad rows, and `descent_tail` on a real cycle's narrow tail beside
+     the card's launch floor (the device time of `torch.zeros(1)`);
   3. runs the engine with its kernels and with their plain versions, both
      on the card, at n = 4096: majority for 300 cycles; mean (tau 0.3)
      and L2 (tau 1, D 2) through a data flip and 8 churn events 20 cycles
@@ -37,10 +38,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
   8. the training substrate's three kernels against their plain versions
      at the trainer's shapes: `threshold_gate` exactly (SmolLM-135M's
      134,515,008 parameters as one ragged flat tensor; tau <= 0 on a
-     ragged 1,000,003), `rglru_scan` forward and the reversed backward
-     scan at (1, 4096, 4096) bf16, `flash_attention_fwd` o and lse at
-     RecurrentGemma-9B's (1, 16 / 1, 4096, 256) window-2048 band and
-     SmolLM-135M's (4, 9 / 3, 2048, 64) causal GQA, bf16, each beside
+     ragged 1,000,003), `rglru_scan` at (1, 4096, 4096) bf16 (forward
+     and the reverse scan, each timed with the L2 evicted, a = 1 with u
+     in eighths exactly, and the Function's backward),
+     `flash_attention_fwd` o and lse at RecurrentGemma-9B's
+     (1, 16 / 1, 4096, 256) window-2048 band and SmolLM-135M's
+     (4, 9 / 3, 2048, 64) causal GQA, bf16, each beside
      `scaled_dot_product_attention` on the same inputs, with the SM
      clock and power nvidia-smi samples under each of the two;
   9. the trainer on RecurrentGemma-9B at full width, depth 3 (one
@@ -191,6 +194,28 @@ def device_ms(fn, dev, iters: int) -> float:
     raise RuntimeError("the profiler recorded no device time")
 
 
+def cold_ms(fn, dev, iters: int):
+    """Mean device milliseconds of `fn` with the 50 MB L2 evicted before
+    each call: a 512 MB read (clean lines, so the call writes back no
+    dirty ones; longer on the card than the host takes to enqueue the
+    call), then CUDA events around the call alone. None off the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    junk = torch.ones(1 << 27, device=dev)
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for a, b in ev:
+        junk.sum()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize(dev)
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -277,9 +302,10 @@ def capture_descent(n: int, dev, cycles: int):
     return seen["args"], eng
 
 
-def descent_row_steps(args) -> int:
-    """Row-steps of the descent loop on these inputs (its data-dependent
-    work), counted with the plain loop's own rules."""
+def descent_row_steps(args):
+    """(row-steps, steps of the longest row) of the descent loop on these
+    inputs (its data-dependent work), counted with the plain loop's own
+    rules."""
     import torch
     from repro_torch.engine import protocol as proto
     from repro_torch.kernels.wheel._common import in_segment
@@ -287,9 +313,10 @@ def descent_row_steps(args) -> int:
     (origin, dest, edge, he, live, entry, pos_i, a_prev, a_self, sseg,
      max_addr, d) = args
     lv, ent, cd, ce, ch = live, entry, dest, edge, he
-    steps = 0
+    steps = longest = 0
     while bool(lv.any()):
         steps += int(lv.sum())
+        longest += 1
         dlv = proto.deliver_rules(
             origin=origin, dest=cd, edge=ce, has_edge=ch, network_entry=ent,
             pos_i=pos_i, a_prev=a_prev, a_self=a_self, self_seg=sseg,
@@ -301,7 +328,7 @@ def descent_row_steps(args) -> int:
         ce = torch.where(stay, dlv.new_edge, ce)
         ch = torch.where(stay, dlv.new_has_edge, ch)
         lv = stay
-    return steps
+    return steps, longest
 
 
 def phase_kernels(dev, sizes, iters: int) -> dict:
@@ -316,7 +343,7 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     rows = {}
 
     def check(name, kernel, plain, args, work, piters, ops_per_row=None,
-              tag="", main=True):
+              tag="", main=True, io=None):
         want = plain(*args)
         got = kernel(*args)
         sync(dev)
@@ -324,14 +351,17 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
         want = want if isinstance(want, tuple) else (want,)
         err = max_abs_err(got, want)
         assert err == 0, f"{name}{tag}: kernel differs from its plain version"
-        io = nbytes(*[a for a in args if isinstance(a, torch.Tensor)], *got)
+        if io is None:
+            io = nbytes(*[a for a in args if isinstance(a, torch.Tensor)],
+                        *got)
         call = time_ms(lambda: kernel(*args), dev, iters)
         pcall = time_ms(lambda: plain(*args), dev, piters, warmup=1)
         ms = device_ms(lambda: kernel(*args), dev, iters)
         pms = device_ms(lambda: plain(*args), dev, piters)
         b_ms, by = bound(name, io, work, ops_per_row)
         fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-               "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+               "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+               "call_ms": call}
         shapes = rows.setdefault(name, {}).setdefault("shapes", {})
         shapes[tag.strip() or "main"] = fig
         if main:
@@ -453,13 +483,27 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
         f"windows in turn")
     del windows
 
-    # descent_tail: the narrow-tail batch of a real cycle
+    # descent_tail: the narrow-tail batch of a real cycle. Its bytes are
+    # what the rows need: a live row reads its 52 input bytes, a row that
+    # is not live only live, dest, edge and has_edge (18); each writes 19
     dargs, eng = sizes["descent"]
-    steps = descent_row_steps(dargs)
+    steps, longest = descent_row_steps(dargs)
+    m, live = dargs[0].shape[0], int(dargs[4].sum())
     check("descent_tail", W.descent_tail, W.descent_reference, dargs,
-          steps, max(1, iters // 8))
-    log(f"  descent batch: {dargs[0].shape[0]} rows, "
-        f"{int(dargs[4].sum())} live, {steps} row-steps")
+          steps, max(1, iters // 8), io=live * 71 + (m - live) * 37)
+    # the same rows with none live (no row loop, no second read), and the
+    # card's launch floor: the device time of a one-element fill, both
+    # through the same profiler path
+    dead = list(dargs)
+    dead[4] = torch.zeros_like(dargs[4])
+    check("descent_tail", W.descent_tail, W.descent_reference, dead, 0,
+          max(1, iters // 8), tag=" no live", main=False, io=m * 37)
+    floor = device_ms(lambda: torch.zeros(1, device=dev), dev, iters)
+    rows["descent_tail"].update(launch_floor_ms=floor,
+                                longest_row_steps=longest)
+    log(f"  descent batch: {m} rows, {live} live, {steps} row-steps, the "
+        f"longest row {longest} steps; launch floor (torch.zeros(1) device "
+        f"time) {floor:.4f} ms")
     del eng
     return rows
 
@@ -911,7 +955,8 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
         by = "bytes" if t_bytes >= t_ops else "operations"
         fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                "bound_ms": b_ms, "bound_by": by,
-               "library_ms": None if library is None else library[0]}
+               "library_ms": None if library is None else library[0],
+               "call_ms": call}
         if library is not None:
             fig["library"] = f"scaled_dot_product_attention ({library[1]})"
         if flop_rate == BF16_FLOPS_PER_S:
@@ -946,17 +991,44 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
         log(f"    n={n} tau={tau}: {int(got[2])} sent, counts equal")
         del g, r, want, got
 
-    # rglru_scan: forward, then the Function's backward (the reversed scan)
+    # rglru_scan: forward and the reverse scan the backward runs, a = 1 (a
+    # running sum float32 holds exactly: equal), then the Function's
+    # backward. a, u and h (~100 MB) are twice the L2, so a caller finds
+    # them mostly cold: each row's `ms` is timed with the L2 evicted
+    # before every call, the back-to-back profiler time is `warm_l2_ms`
     b, t, w = scan
     a = (torch.rand((b, t, w), generator=gen, device=dev) * 0.2 + 0.8
          ).bfloat16()
     u = (torch.randn((b, t, w), generator=gen, device=dev) * 0.1).bfloat16()
-    got, want = rglru_scan(a, u), linear_scan_reference(a, u)
-    sync(dev)
-    err = float_err(got, want, "rglru_scan")
-    record("rglru_scan", lambda: rglru_scan(a, u),
-           lambda: linear_scan_reference(a, u), err, 3 * a.numel() * 2,
-           2 * a.numel(), ALU_OPS_PER_S, max(1, iters // 4))
+    io, flops = 3 * a.numel() * 2, 2 * a.numel()
+    for tag, rev in (("main", False), ("reverse", True)):
+        got = rglru_scan(a, u, reverse=rev)
+        want = linear_scan_reference(a, u, reverse=rev)
+        sync(dev)
+        err = float_err(got, want, "rglru_scan")
+        kern = lambda rev=rev: rglru_scan(a, u, reverse=rev)
+        record("rglru_scan", kern,
+               lambda rev=rev: linear_scan_reference(a, u, reverse=rev), err,
+               io, flops, ALU_OPS_PER_S, max(1, iters // 4), tag)
+        fig = rows["rglru_scan"]["shapes"][tag]
+        fig["warm_l2_ms"], fig["ms"] = fig["ms"], cold_ms(kern, dev, iters)
+        if tag == "main":
+            rows["rglru_scan"].update(fig)
+        log(f"    {tag} with the L2 evicted before each call: {fig['ms']} ms "
+            f"(back to back {fig['warm_l2_ms']} ms)")
+    ones = torch.ones_like(a)
+    eighths = (torch.randint(-8, 9, (b, t, w), generator=gen, device=dev)
+               / 8).bfloat16()
+    for rev in (False, True):
+        got = rglru_scan(ones, eighths, reverse=rev)
+        want = linear_scan_reference(ones, eighths, reverse=rev)
+        sync(dev)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), \
+            f"rglru_scan: a = 1 running sum differs (reverse={rev})"
+    rows["rglru_scan"]["cumsum_exact"] = True
+    log("    a = 1, u in eighths (a running sum held exactly): equal to "
+        "the plain version, forward and reverse")
+    del ones, eighths, got, want
     cot = torch.randn((b, t, w), generator=gen, device=dev).bfloat16()
     grads = []
     for use_kernel in (True, False):
@@ -967,7 +1039,7 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
     sync(dev)
     err_b = float_err(*grads, "rglru_scan_bwd")
     rows["rglru_scan"]["backward_max_abs_err"] = err_b
-    log(f"    backward (reversed scan on the kernel vs plain): da, du "
+    log(f"    backward (the reverse scan on the kernel vs plain): da, du "
         f"max_abs_err {err_b:.3g} (rtol, atol {TOL['rglru_scan_bwd']})")
     del a, u, cot, grads, xs, h
 

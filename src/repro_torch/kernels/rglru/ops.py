@@ -3,9 +3,12 @@ CPU tensors) and the differentiable `linear_scan`.
 
 Replaces the Pallas kernel `rglru_scan`
 (src/repro/kernels/rglru/rglru.py:56). CUDA source:
-``kernels/csrc/rglru.cu``: one thread per (b, w) channel, a sequential
-loop over T with the float32 state in a register, coalesced across w.
-Bound on the H100 by bytes (two reads, one write per element).
+``kernels/csrc/rglru.cu``: parallel in time as well as in channels. A
+CTA owns a slab of channels and walks T in tiles streamed through a
+cp.async ring in shared memory; inside a tile each channel's steps are
+split over several threads, which scan their sub-chunks, fold the
+(prod a, local h) pairs onto the tile's float32 carry and rescan. Bound
+on the H100 by bytes (two reads, one write per element).
 
 The backward of a diagonal linear recurrence is itself a reversed one:
 given h_t = a_t h_{t-1} + u_t and cotangent g_t,
@@ -13,8 +16,8 @@ given h_t = a_t h_{t-1} + u_t and cotangent g_t,
   dL/da_t = G_t * h_{t-1}
   dL/dh0  = a_1 * G_1
 so `linear_scan`'s backward runs the same scan (the kernel on the card)
-on time-reversed inputs, as the reference's custom VJP does
-(src/repro/kernels/rglru/ops.py:47).
+in reverse mode on the shifted a, as the reference's custom VJP runs it
+on time-reversed inputs (src/repro/kernels/rglru/ops.py:47).
 """
 from __future__ import annotations
 
@@ -26,18 +29,18 @@ from repro_torch.kernels.rglru.ref import linear_scan_reference
 from repro_torch.kernels.wheel._common import (I32, I64, P, bind, launched,
                                                on_cuda, ptr, stream_of)
 
-_ARGS = [P, P, P, I32, I64, I64, I64, P, P, P]
+_ARGS = [P, P, P, I32, I32, I64, I64, I64, P, P, P]
 _TYPES = (torch.float32, torch.bfloat16)
 
 
 def rglru_scan(a: torch.Tensor, u: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
+               h0: Optional[torch.Tensor] = None, reverse: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h (B, T, W), h_T (B, W)) in a's dtype; see
     `linear_scan_reference`. On CUDA: contiguous float32 or bfloat16 a, u
     (B, T, W) and h0 (B, W) of one dtype."""
     if not on_cuda(a):
-        return linear_scan_reference(a, u, h0)
+        return linear_scan_reference(a, u, h0, reverse)
     if a.dim() != 3 or u.shape != a.shape:
         raise ValueError(f"rglru_scan: want a, u of one (B, T, W) shape, got "
                          f"{tuple(a.shape)} and {tuple(u.shape)}")
@@ -58,17 +61,20 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"rglru_scan: {name} is not contiguous")
     h = torch.empty_like(a)
+    if b * w == 0:  # nothing to scan: no launch
+        return h, a.new_empty((b, w))
     h_last = torch.empty((b, w), dtype=a.dtype, device=a.device)
     fn = bind("rglru", "rt_rglru_scan", _ARGS)
     launched("rglru_scan", fn(
         ptr(a), ptr(u), None if h0 is None else ptr(h0),
-        int(a.dtype == torch.bfloat16), b, t, w, ptr(h), ptr(h_last),
-        stream_of(a.device)))
+        int(a.dtype == torch.bfloat16), int(reverse), b, t, w, ptr(h),
+        ptr(h_last), stream_of(a.device)))
     return h, h_last
 
 
-def _scan(a, u, h0, use_kernel: bool):
-    return (rglru_scan if use_kernel else linear_scan_reference)(a, u, h0)
+def _scan(a, u, h0, use_kernel: bool, reverse: bool = False):
+    return (rglru_scan if use_kernel else linear_scan_reference)(
+        a, u, h0, reverse)
 
 
 class _LinearScan(torch.autograd.Function):
@@ -88,12 +94,11 @@ class _LinearScan(torch.autograd.Function):
         b, t, w = a.shape
         if not ctx.has_h0:
             h0 = torch.zeros((b, w), dtype=a.dtype, device=a.device)
-        g = g.clone()
+        g = g.clone(memory_format=torch.contiguous_format)
         g[:, -1] += g_last
-        # reverse scan: G_t = g_t + a_{t+1} G_{t+1}
-        a_rev = torch.flip(torch.cat([a[:, 1:], a.new_zeros((b, 1, w))], 1), [1])
-        g_rev, _ = _scan(a_rev, torch.flip(g, [1]), None, ctx.use_kernel)
-        big_g = torch.flip(g_rev, [1])
+        # reverse scan: G_t = g_t + a_{t+1} G_{t+1}, from t = T - 1 down
+        a_next = torch.cat([a[:, 1:], a.new_zeros((b, 1, w))], 1)
+        big_g, _ = _scan(a_next, g, None, ctx.use_kernel, reverse=True)
         h_prev = torch.cat([h0[:, None, :], h[:, :-1]], 1)
         da = big_g * h_prev
         dh0 = (a[:, 0] * big_g[:, 0]).to(a.dtype) if ctx.has_h0 else None

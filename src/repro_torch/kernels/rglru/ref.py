@@ -1,7 +1,7 @@
 """Plain versions of the RG-LRU diagonal linear recurrence and its gates
 (the semantics of `repro.kernels.rglru.ref`).
 
-    h_t = a_t * h_{t-1} + u_t
+    h_t = a_t * h_{t-1} + u_t        (or, reversed, a_t * h_{t+1} + u_t)
 
 with a per-(batch, time, width) decay a_t in (0, 1] and a pre-gated
 input u_t. The state is float32; outputs are cast back to a's dtype.
@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 
 def linear_scan_reference(a: torch.Tensor, u: torch.Tensor,
-                          h0: Optional[torch.Tensor] = None
+                          h0: Optional[torch.Tensor] = None,
+                          reverse: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h over time (B, T, W), final state (B, W)).
 
@@ -24,19 +25,30 @@ def linear_scan_reference(a: torch.Tensor, u: torch.Tensor,
     instead of T dependent steps. It rounds differently from a
     sequential loop and from the reference's chunked associative scan;
     every comparison with it states a tolerance.
+
+    `reverse` runs h_t = a_t h_{t+1} + u_t from t = T - 1 down to 0, with
+    h0 the state after step T - 1 and the final state h_0: the forward
+    scan of the time-flipped inputs, flipped back, with each sum rounded
+    in the same order.
     """
     af = a.float()
     uf = u.float()
+    first = -1 if reverse else 0
     if h0 is not None:
         uf = uf.clone()
-        uf[:, 0] += af[:, 0] * h0.float()
+        uf[:, first] += af[:, first] * h0.float()
     t = a.shape[1]
     k = 1
     while k < t:
-        uf = torch.cat([uf[:, :k], uf[:, :-k] * af[:, k:] + uf[:, k:]], 1)
-        af = torch.cat([af[:, :k], af[:, :-k] * af[:, k:]], 1)
+        if reverse:
+            uf = torch.cat([af[:, :-k] * uf[:, k:] + uf[:, :-k], uf[:, -k:]], 1)
+            af = torch.cat([af[:, :-k] * af[:, k:], af[:, -k:]], 1)
+        else:
+            uf = torch.cat([uf[:, :k], uf[:, :-k] * af[:, k:] + uf[:, k:]], 1)
+            af = torch.cat([af[:, :k], af[:, :-k] * af[:, k:]], 1)
         k *= 2
-    return uf.to(a.dtype), uf[:, -1].to(a.dtype)
+    last = 0 if reverse else -1
+    return uf.to(a.dtype), uf[:, last].to(a.dtype)
 
 
 def rglru_gates(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,

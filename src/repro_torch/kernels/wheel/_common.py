@@ -74,7 +74,11 @@ def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def stream_of(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of `dev`'s current stream: what
+    `torch.cuda.current_stream(dev).cuda_stream` gives, without building a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def launched(kernel: str, rc: int) -> None:

@@ -13,16 +13,19 @@ Replaces the Pallas kernel `descent_tail_kernel`
 functions (``addressing.cuh``). Each row's result depends only on its
 own values, so one thread per row looping to its own end is
 bit-identical to the global loop and needs no host sync on `any(live)`.
-On the H100 it is bound by bytes.
+Its bound on the H100 is bytes: a row that is not live (most of the
+fixed-width tail) reads only live, dest, edge and has_edge, and the five
+outputs are rows of two buffers. In practice it waits on latency: the
+launch, the reads, and its longest row's serial steps.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.engine import protocol as proto
-from repro_torch.kernels.wheel._common import (I32, I64, P, bind, check_args,
-                                               in_segment, launched, on_cuda,
-                                               ptr, stream_of)
+from repro_torch.kernels.wheel._common import (I32, I64, P, bind, in_segment,
+                                               launched, on_cuda, ptr,
+                                               stream_of)
 
 
 def descent_reference(origin, dest, edge, has_edge, live, entry, pos_i,
@@ -56,35 +59,42 @@ def descent_reference(origin, dest, edge, has_edge, live, entry, pos_i,
     return acc, drop, o_dest, o_edge, o_he
 
 
-_ARGS = [P] * 11 + [I32, I64] + [P] * 6
+_ARGS = [P] * 11 + [I32, I64] + [P] * 3
+_NAMES = ("origin", "dest", "edge", "has_edge", "live", "entry", "pos_i",
+          "a_prev", "a_self", "self_seg")
+_I64, _B = torch.int64, torch.bool
+_DTYPES = (_I64, _I64, _I64, _B, _B, _B, _I64, _I64, _I64, _B)
 
 
 def descent_tail(origin, dest, edge, has_edge, live, entry, pos_i, a_prev,
                  a_self, self_seg, max_addr, d: int):
     """The plain version on the CPU; the CUDA per-row loop for CUDA
-    tensors (addresses int64 (M,), flags bool (M,), max_addr int64 (1,))."""
+    tensors (addresses int64 (M,), flags bool (M,), max_addr int64 (1,)).
+    Returns (acc, drop, o_dest, o_edge, o_he)."""
     if not on_cuda(origin):
         return descent_reference(origin, dest, edge, has_edge, live, entry,
                                  pos_i, a_prev, a_self, self_seg, max_addr, d)
-    i64, b = torch.int64, torch.bool
-    args = dict(origin=origin, dest=dest, edge=edge, has_edge=has_edge,
-                live=live, entry=entry, pos_i=pos_i, a_prev=a_prev,
-                a_self=a_self, self_seg=self_seg, max_addr=max_addr)
-    dev = check_args("descent_tail", args, dict(
-        origin=i64, dest=i64, edge=i64, has_edge=b, live=b, entry=b,
-        pos_i=i64, a_prev=i64, a_self=i64, self_seg=b, max_addr=i64))
-    m = origin.shape[0]
-    if any(a.shape != (m,) for k, a in args.items() if k != "max_addr"):
-        raise ValueError("descent_tail: every row input must be (M,)")
-    if max_addr.numel() != 1 or not 1 <= d <= 32:
-        raise ValueError("descent_tail: max_addr must hold one value, d <= 32")
-    acc = torch.empty(m, dtype=b, device=dev)
-    drop = torch.empty(m, dtype=b, device=dev)
-    o_dest = torch.empty(m, dtype=i64, device=dev)
-    o_edge = torch.empty(m, dtype=i64, device=dev)
-    o_he = torch.empty(m, dtype=b, device=dev)
+    rows = (origin, dest, edge, has_edge, live, entry, pos_i, a_prev, a_self,
+            self_seg)
+    dev, m = origin.device, origin.shape[0]
+    for name, x, dt in zip(_NAMES, rows, _DTYPES):  # one pass over the rows
+        if x.dtype != dt:
+            raise TypeError(f"descent_tail: {name} has dtype {x.dtype}, want "
+                            f"{dt}")
+        if x.device != dev or x.shape != (m,) or not x.is_contiguous():
+            raise ValueError(f"descent_tail: {name} must be a contiguous "
+                             f"({m},) tensor on {dev}, got {tuple(x.shape)} "
+                             f"on {x.device}")
+    if (max_addr.dtype != _I64 or max_addr.device != dev
+            or max_addr.numel() != 1 or not 1 <= d <= 32):
+        raise ValueError("descent_tail: max_addr must be one int64 on the "
+                         "rows' device, d <= 32")
+    flags = torch.empty((3, m), dtype=_B, device=dev)
+    addrs = torch.empty((2, m), dtype=_I64, device=dev)
     fn = bind("descent", "rt_descent_tail", _ARGS)
     launched("descent_tail", fn(
-        *(ptr(a) for a in args.values()), int(d), m, ptr(acc), ptr(drop),
-        ptr(o_dest), ptr(o_edge), ptr(o_he), stream_of(dev)))
+        *(ptr(x) for x in rows), ptr(max_addr), int(d), m, ptr(flags),
+        ptr(addrs), stream_of(dev)))
+    acc, drop, o_he = flags.unbind(0)
+    o_dest, o_edge = addrs.unbind(0)
     return acc, drop, o_dest, o_edge, o_he

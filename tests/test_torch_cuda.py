@@ -48,7 +48,7 @@ from repro_torch.kernels.wheel import (LAUNCHES, descent_reference,
                                        reset_launches, stage_rows,
                                        stage_rows_reference, threshold_step,
                                        threshold_step_reference)
-from repro_torch.kernels.wheel._common import in_segment
+from repro_torch.kernels.wheel._common import in_segment, stream_of
 
 WW_1E6 = 262_272          # drain-window rows per cycle at n = 1e6
 NL_1E6 = 3 * 2**21        # per-link plane cells at n = 1e6
@@ -229,10 +229,18 @@ def test_stage_rows_kernel_matches_plain(cuda, roww):
         _same((got,), (want,))
 
 
-def test_descent_tail_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("m,live_p", [
+    (32_784, 0.8),   # the engine's narrow-tail width at n = 1e6
+    (32_784, 1.0),   # every row live
+    (32_784, 0.0),   # no row live: every row passes through
+    (1, 1.0),        # one row
+    (1, 0.0),
+    (1000, 0.5),     # M not a multiple of the block
+])
+def test_descent_tail_kernel_matches_plain(cuda, m, live_p):
     """Routing-consistent rows from a real ring's owner tables, d = 32."""
     rng = np.random.default_rng(2)
-    m, n, d = 32_784, 4096, 32
+    n, d = 4096, 32
     addrs = A.random_ring(n, d, seed=3).astype(np.int64)
     prev = np.roll(addrs, 1)
     pos = A.position_from_segment(torch.from_numpy(prev),
@@ -244,12 +252,14 @@ def test_descent_tail_kernel_matches_plain(cuda):
     a_prev, a_self = t(prev[own]), t(addrs[own])
     args = [t(origin), t(dest),
             t(rng.integers(0, 2**d, m, dtype=np.uint64).astype(np.int64)),
-            t(rng.random(m) < 0.7), t(rng.random(m) < 0.8),
+            t(rng.random(m) < 0.7), t(rng.random(m) < live_p),
             t(rng.random(m) < 0.5), t(pos[own]), a_prev, a_self,
             in_segment(t(origin), a_prev, a_self), t(addrs[-1:])]
     want = descent_reference(*args, d)
+    before = LAUNCHES["descent_tail"]
     got = descent_tail(*args, d)
     torch.cuda.synchronize()
+    assert LAUNCHES["descent_tail"] == before + 1
     _same(got, want)
 
 
@@ -276,6 +286,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         threshold_step(L2Thresh(dim=9), z(4, 3, 10), z(4, 3, 10), z(4, 9))
     with pytest.raises(ValueError):
         majority_step(z(4, 3), z(4, 3), z(4, 3), z(4, 3), z(5))
+    i64 = torch.zeros(8, dtype=torch.int64, device=cuda)
+    flag = torch.zeros(8, dtype=torch.bool, device=cuda)
+    drow = [i64, i64, i64, flag, flag, flag, i64, i64, i64, flag, i64[:1]]
+    with pytest.raises(TypeError):
+        descent_tail(i64.int(), *drow[1:], 32)
+    with pytest.raises(ValueError):  # a strided row
+        descent_tail(*drow[:4], torch.zeros(16, dtype=torch.bool,
+                                            device=cuda)[::2], *drow[5:], 32)
+    with pytest.raises(ValueError):  # rows of different lengths
+        descent_tail(*drow[:9], flag[:7], drow[10], 32)
 
 
 def test_engine_kernels_match_plain_and_launch(cuda):
@@ -424,19 +444,28 @@ def _close(got, want, atol, rtol=0.0):
 # float32: sums of T products in another order (the plain version is a
 # doubling scan); bfloat16: outputs within one rounding step (2^-8 rel.)
 SCAN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 8e-3)}
+# T at the kernel's tile edges in both dtypes (tiles of 64 steps at
+# float32, 128 at bfloat16), W at and past the 32-channel slab, B = 1 and 3
+SCAN_EDGES = [(b, t, w, b > 1) for t in (1, 63, 64, 65, 127, 128, 129, 4097)
+              for w in (8, 40, 4104) for b in (1, 3)]
+# unaligned rows (W * itemsize % 16 != 0) take the kernel's scalar loads
+SCAN_CASES = [(2, 77, 96, True), (3, 200, 40, False), (1, 4096, 4096, False),
+              (2, 130, 37, True), (1, 300, 4093, False)] + SCAN_EDGES
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,w,with_h0", [(2, 77, 96, True),
-                                           (3, 200, 40, False),
-                                           (1, 4096, 4096, False)])
-def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, t, w, with_h0):
-    gen = torch.Generator(device=cuda).manual_seed(t)
+def _scan_inputs(cuda, dtype, b, t, w, with_h0, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     a = torch.rand((b, t, w), generator=gen, device=cuda) * 0.2 + 0.8
     u = torch.randn((b, t, w), generator=gen, device=cuda) * 0.1
     h0 = torch.randn((b, w), generator=gen, device=cuda) if with_h0 else None
-    a, u = a.to(dtype), u.to(dtype)
-    h0 = None if h0 is None else h0.to(dtype)
+    return a.to(dtype), u.to(dtype), None if h0 is None else h0.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w,with_h0", SCAN_CASES)
+def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, t, w, with_h0):
+    """One launch a call."""
+    a, u, h0 = _scan_inputs(cuda, dtype, b, t, w, with_h0, seed=t)
     want = linear_scan_reference(a, u, h0)
     before = LAUNCHES["rglru_scan"]
     got = rglru_scan(a, u, h0)
@@ -445,6 +474,75 @@ def test_rglru_scan_kernel_matches_plain(cuda, dtype, b, t, w, with_h0):
     atol, rtol = SCAN_TOL[dtype]
     for g_, w_ in zip(got, want):
         _close(g_, w_, atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w,with_h0", [(2, 77, 96, True),
+                                           (3, 129, 40, False),
+                                           (1, 4097, 4104, True),
+                                           (2, 130, 37, False)])
+def test_rglru_scan_reverse_kernel_matches_plain(cuda, dtype, b, t, w,
+                                                 with_h0):
+    a, u, h0 = _scan_inputs(cuda, dtype, b, t, w, with_h0, seed=t * w)
+    want = linear_scan_reference(a, u, h0, reverse=True)
+    got = rglru_scan(a, u, h0, reverse=True)
+    torch.cuda.synchronize()
+    atol, rtol = SCAN_TOL[dtype]
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, atol, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rglru_scan_cumsum_carry_is_exact(cuda, dtype, reverse):
+    """a = 1 and u, h0 in eighths: h is a running sum that float32 holds
+    exactly (|h| <= 4097, 1/8 apart), in the kernel and in the plain
+    version alike, so they must be equal. A carry rounded through
+    bfloat16, or a lane's pair folded in the wrong place, shows here."""
+    rng = np.random.default_rng(11)
+    b, t, w = 2, 4097, 4104
+    u = torch.from_numpy(rng.integers(-8, 9, (b, t, w)) / 8).to(cuda, dtype)
+    h0 = torch.from_numpy(rng.integers(-64, 65, (b, w)) / 8).to(cuda, dtype)
+    a = torch.ones_like(u)
+    want = linear_scan_reference(a, u, h0, reverse=reverse)
+    got = rglru_scan(a, u, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_unaligned_pointer(cuda, dtype):
+    """a and u one element past a 16-byte boundary (W a multiple of 8):
+    the scalar-load path, one launch."""
+    b, t, w = 1, 300, 64
+    a, u, h0 = _scan_inputs(cuda, dtype, b, t, w, True, seed=9)
+    buf = torch.empty(2, b * t * w + 1, dtype=dtype, device=cuda)
+    buf[0, 1:], buf[1, 1:] = a.flatten(), u.flatten()
+    ao, uo = buf[0, 1:].view(b, t, w), buf[1, 1:].view(b, t, w)
+    assert ao.data_ptr() % 16 and uo.data_ptr() % 16
+    want = linear_scan_reference(a, u, h0)
+    before = LAUNCHES["rglru_scan"]
+    got = rglru_scan(ao, uo, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 1
+    atol, rtol = SCAN_TOL[dtype]
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, atol, rtol)
+
+
+def test_stream_of_is_the_current_stream(cuda):
+    """Every wrapper launches on `stream_of`'s raw handle, read through a
+    private torch call: it must be the current stream's, on the default
+    stream and under another one, with and without a device index."""
+    devs = (cuda, torch.device("cuda", torch.cuda.current_device()))
+    for dev in devs:
+        assert stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(device=cuda)
+    with torch.cuda.stream(side):
+        for dev in devs:
+            assert stream_of(dev) == side.cuda_stream
+            assert stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream
+    assert stream_of(cuda) != side.cuda_stream
 
 
 def _sequential_scan(a, u, h0):

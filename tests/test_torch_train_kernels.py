@@ -126,6 +126,31 @@ def test_scan_plain_matches_reference_and_pallas(b, t, w, with_h0):
             np.testing.assert_allclose(_np(x), np.asarray(p), atol=2e-5)
 
 
+@pytest.mark.parametrize("b,t,w,with_h0", SCAN_CASES)
+def test_scan_reverse_plain_matches_flip_form(b, t, w, with_h0):
+    """The reverse plain scan (what the backward runs) equals the forward
+    scan of the time-flipped inputs, flipped back, exactly (the same sums
+    in the same order), and the reference's scan of the flipped inputs
+    within the forward tolerance; the CPU wrapper takes it."""
+    rng = np.random.default_rng(b * t + w + 1)
+    a = rng.uniform(0.7, 0.999, (b, t, w)).astype(np.float32)
+    u = (rng.standard_normal((b, t, w)) * 0.1).astype(np.float32)
+    h0 = (rng.standard_normal((b, w)) * 0.1).astype(np.float32) \
+        if with_h0 else None
+    th0 = None if h0 is None else T(h0)
+    got = linear_scan_reference(T(a), T(u), th0, reverse=True)
+    flip = linear_scan_reference(T(a).flip(1), T(u).flip(1), th0)
+    torch.testing.assert_close(got[0], flip[0].flip(1), atol=0, rtol=0)
+    torch.testing.assert_close(got[1], flip[1], atol=0, rtol=0)
+    want = r_scan_ref(jnp.asarray(a[:, ::-1]), jnp.asarray(u[:, ::-1]),
+                      None if h0 is None else jnp.asarray(h0))
+    np.testing.assert_allclose(_np(got[0]), np.asarray(want[0])[:, ::-1],
+                               atol=2e-5)
+    np.testing.assert_allclose(_np(got[1]), np.asarray(want[1]), atol=2e-5)
+    for x, y in zip(rglru_scan(T(a), T(u), th0, reverse=True), got):
+        assert torch.equal(x, y)
+
+
 def test_rglru_gates_match_reference():
     rng = np.random.default_rng(4)
     x, r, i = (rng.standard_normal((2, 9, 16)).astype(np.float32)
