@@ -17,15 +17,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      width 9; `due_dedup` on uniform links, on many rows per link, on
      every direction of many peers, then on those windows in turn on one
      scratch), the mean and L2 forms of `threshold_step` at the drain
-     window (WW rows) and the event react (pad rows), `majority_step`
-     at pad rows, and `descent_tail` on a real cycle's narrow tail beside
-     the card's launch floor (the device time of `torch.zeros(1)`);
+     window (WW rows) and the event react (pad rows), the general L2
+     kernel at D = 9 (M = 18, pad rows) and with a 16,384-float cover
+     (D = 16, M = 1,024, WW rows), `majority_step` at pad rows, and
+     `descent_tail` on a real cycle's narrow tail beside the card's
+     launch floor (the device time of `torch.zeros(1)`);
   3. runs the engine with its kernels and with their plain versions, both
      on the card, at n = 4096: majority for 300 cycles; mean (tau 0.3)
      and L2 (tau 1, D 2) through a data flip and 8 churn events 20 cycles
      apart; majority without the threshold kernel (its event react runs
-     `majority_step`) through the same. The full state must be equal
-     after every stage and every churn event;
+     `majority_step`) through the same; L2 at D = 9 (the general kernel,
+     whose launches count under a name of their own) through a data
+     flip. The full state must be equal after every stage and every
+     churn event;
   4. the majority main path at n = 100,000: converge at mu = 0.45, flip
      the votes to mu = 0.55 through `apply_coalesced`, converge again;
   5. n = 1,000,000 majority peers: the init storm and 100 cycles, then a
@@ -53,13 +57,34 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
  10. the trainer on SmolLM-135M (full config) in threshold mode, 2 pods,
      compress tau 1e-4, max inner 4, batch 8 x 2048, 12 steps
      (`run_threshold`), and the same run with plain kernels;
+ 12. the fault plane, kernels-on vs plain engines in lockstep event by
+     event: the differential harness's four fault schedules (majority
+     404 crash, mean 505 crash, majority 606 drop, L2 707 drop), drawn
+     here from their seeds, and the majority crash schedule without the
+     threshold kernel (`majority_step` armed); full state, evictions and
+     losses equal;
+ 13. the fault plane at scale: majority at n = 1,000,000 armed with
+     drops and delays (p 0.1 / 0.05, probe-only detector) run toward
+     its truth for at most 2,000 cycles (converged or not, it says
+     which) and 30 cycles more, with `descent_tail`, `threshold_step`
+     and `stage_rows` held exactly against their plain versions on the
+     armed cycle's own inputs (the first cycle of each run and each one
+     1.5 times wider than the widest checked; their rows printed beside
+     phase 2's), then a device-time profile; majority at n = 100,000 with
+     16 peers crashed at spread addresses (suspect 25, evict 150),
+     stepped until the detector evicted exactly them, then reconverged;
+     and the same on ring seed 7, where the reference's detector also
+     evicts a live neighbour of a crashed peer: every crashed peer must
+     go, the live ones evicted are reported;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
-     threshold kernel, phases 4-5, phases 6-7, phase 9's run, phase 10's
-     run): every kernel the path runs launched at least once, every
-     other kernel never. Prints one JSON line with every kernel's
-     launches (on its main path, and on each path that runs it), its
-     error, times and bound.
+     threshold kernel, phase 3's L2 at D = 9, phases 4-5, phases 6-7,
+     phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
+     schedule): every kernel the path runs launched at least once, every
+     other kernel never (`due_dedup` never on the armed paths: an armed
+     engine elects with the plain version). Prints one JSON line with
+     every kernel's launches (on its main path, and on each path that
+     runs it), its error, times and bound.
 
 Every phase asserts; the last line is the run's JSON verdict. Exits
 non-zero without printing a result when no CUDA device is present or the
@@ -84,6 +109,7 @@ ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 peak; the int32 work
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 N_BIG = 1_000_000
 N_MID = 100_000
+ARMED_BIG_CYCLES = 2000  # the armed 1e6 run's cap: converged or not
 SOURCES = {
     "stage_rows": ("src/repro_torch/kernels/csrc/enqueue.cu",
                    "src/repro/kernels/wheel/enqueue.py:52"),
@@ -97,6 +123,9 @@ SOURCES = {
                             "src/repro/kernels/wheel/threshold_step.py:35"),
     "threshold_step_l2": ("src/repro_torch/kernels/csrc/threshold_step.cu",
                           "src/repro/kernels/wheel/threshold_step.py:35"),
+    "threshold_step_l2_general": (
+        "src/repro_torch/kernels/csrc/threshold_step.cu",
+        "src/repro/kernels/wheel/threshold_step.py:35"),
     "majority_step": ("src/repro_torch/kernels/csrc/majority_step.cu",
                       "src/repro/kernels/majority_step/majority_step.py:45"),
     "threshold_gate": ("src/repro_torch/kernels/csrc/threshold_gate.cu",
@@ -116,12 +145,19 @@ PATH_KERNELS = {
                  "descent_tail"},
     "mean_l2": {"stage_rows", "due_dedup", "descent_tail",
                 "threshold_step_mean", "threshold_step_l2"},
+    "l2_any_dim": {"stage_rows", "due_dedup", "descent_tail",
+                   "threshold_step_l2_general"},
     "train_rg9b": {"rglru_scan", "flash_attention_fwd"},
+    # armed engines elect with the plain version: due_dedup stays at 0
+    "armed": {"stage_rows", "threshold_step", "descent_tail",
+              "threshold_step_mean", "threshold_step_l2"},
+    "armed_no_threshold": {"stage_rows", "descent_tail", "majority_step"},
     "train_smollm_threshold": {"flash_attention_fwd", "threshold_gate"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
              "threshold_step_mean": "mean_l2", "threshold_step_l2": "mean_l2",
+             "threshold_step_l2_general": "l2_any_dim",
              "majority_step": "majority_no_threshold",
              "rglru_scan": "train_rg9b", "flash_attention_fwd": "train_rg9b",
              "threshold_gate": "train_smollm_threshold"}
@@ -436,6 +472,30 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
               max(1, iters // 4), ops_per_row=l2_ops, tag=tag,
               main=n_rows == ww)
 
+    # the general L2 kernel (any D, any cover): D = 9 with M = 18 at the
+    # event react's pad rows (the row the JSON line reports), and a
+    # 16,384-float cover (D = 16, M = 1024) at the window's rows — past
+    # the shared-memory form's 12,288
+    for dim, ndirs, n_rows, tag in ((9, 18, pad, " D9 M18 @pad"),
+                                    (16, 1024, ww, " D16 M1024 @WW")):
+        prob = L2Thresh(tau=1.0, dim=dim, ndirs=ndirs)
+        ip = ints(-768, 769, (n_rows, 3, dim + 1))
+        op = ints(-768, 769, (n_rows, 3, dim + 1))
+        ip[..., dim] = rng.integers(0, 4, (n_rows, 3))
+        op[..., dim] = rng.integers(0, 4, (n_rows, 3))
+        x = ints(-512, 513, (n_rows, dim))
+        q = n_rows // 4
+        ip[:q, :, :dim] = 0
+        x[:q] = 0
+        args = tuple(torch.from_numpy(a).to(dev) for a in (ip, op, x))
+        check("threshold_step_l2_general",
+              lambda *a, p=prob: W.threshold_step(p, *a),
+              lambda *a, p=prob: W.threshold_step_reference(p, *a), args,
+              n_rows, max(1, iters // 10),
+              ops_per_row=l2_ops_per_row(dim, ndirs), tag=tag,
+              main=dim == 9)
+        del args, ip, op, x
+
     # majority_step: the event react's (N, 3) planes at pad rows
     planes = [ints(0, 60, (pad, 3), pad // 16) for _ in range(4)]
     args = tuple(torch.from_numpy(a).to(dev) for a in (
@@ -624,6 +684,391 @@ def phase_parity_churn(dev, n: int, label: str, build, flip) -> dict:
     return counts
 
 
+def phase_parity_l2_any_dim(dev, n: int, dim: int) -> None:
+    """An L2 engine at data width `dim` (the general kernel past D = 8)
+    with its kernels vs with their plain versions, through 40 cycles, a
+    full-width data flip and 40 more: full state equal after each."""
+    import numpy as np
+    from repro_torch.engine import L2Thresh, make_engine
+    from repro_torch.core.dht import Ring
+
+    rng = np.random.default_rng(31)
+    ring = Ring.random(n, 32, seed=31)
+    c = np.zeros(dim)
+    c[:2] = 0.6, -0.8
+    data0 = rng.normal(1.3 * c, 0.9, (n, dim))
+    data1 = rng.normal(0.45 * c, 0.9, (n, dim))
+    prob = L2Thresh(tau=1.0, dim=dim)
+    a, b = (make_engine("torch", ring, data0, seed=32, device=dev,
+                        capacity_per_peer=8, problem=prob, wheel_kernels=wk)
+            for wk in ("auto", "none"))
+    for stage in ("40 cycles", "the data flip", "40 more cycles"):
+        for e in (a, b):
+            if stage == "the data flip":
+                e.apply_coalesced(np.arange(n), data1)
+            else:
+                e.step(40)
+        assert_same_state(a, b, f"(L2 D={dim}) after {stage}")
+    assert a.dropped == 0
+    a.check_conservation()
+    log(f"  L2 D={dim} n={n}: kernels-on and plain engines equal in full "
+        f"state after 40 cycles, a data flip and 40 more (t={a.t}, "
+        f"messages={a.messages_sent})")
+
+
+# -- phases 12 and 13: the fault plane --------------------------------------
+
+# tests/_diff_harness.py's FAULT_GRID: (problem, seed, mode)
+FAULT_GRID = (("majority", 404, "crash"), ("mean", 505, "crash"),
+              ("majority", 606, "drop"), ("l2", 707, "drop"))
+
+
+def fault_schedule(problem_name: str, seed: int, faults: str) -> dict:
+    """The differential harness's seeded schedule for (problem, seed,
+    mode), drawn here the same way (the same generator, in the same
+    order): a ring of 48-96 peers, its data, and 3-6 events of steps,
+    data changes, joins, leaves and settles; "crash" adds a silent crash
+    and the wait for its eviction, "drop" arms message loss and delay
+    with a probe-only detector. The mesh resizes it draws do nothing on
+    one card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(48, 97))
+
+    def raw(k):
+        if problem_name == "majority":
+            return rng.integers(0, 2, size=k).astype(np.int64)
+        if problem_name == "mean":
+            off = float(rng.choice([-0.6, 0.6]))
+            return rng.normal(off, 0.8, size=k)
+        c = rng.normal(size=2)
+        c *= float(rng.choice([0.2, 1.8])) / max(np.linalg.norm(c), 1e-9)
+        return rng.normal(c, 0.25, size=(k, 2))
+
+    from repro_torch.core.dht import Ring
+
+    data = raw(n)
+    ring_seed = int(rng.integers(0, 2**31))
+    occupied = set(int(a) for a in Ring.random(n, 32, seed=ring_seed).addrs)
+    n_cur, events = n, []
+    n_events = int(rng.integers(3, 7))
+    kinds = ["step", "set", "join", "leave", "settle", "resize"]
+    fcfg = {"p_drop": 0.1 if faults == "drop" else 0.0,
+            "p_delay": 0.05 if faults == "drop" else 0.0,
+            "suspect_after": 25,
+            "evict_after": 150 if faults == "crash" else 0,
+            "seed": seed + 13}
+    crash_at = int(rng.integers(1, n_events)) if faults == "crash" else -1
+    for ei in range(n_events):
+        if ei == crash_at:
+            events.append(("crash", int(rng.integers(0, n_cur))))
+            events.append(("resize", 2))
+            events.append(("step", fcfg["evict_after"]
+                           + 2 * fcfg["suspect_after"] + 64))
+            n_cur -= 1
+        kind = str(rng.choice(kinds))
+        if kind == "step":
+            events.append(("step", int(rng.integers(1, 41))))
+        elif kind == "resize":
+            events.append(("resize", int(rng.choice([1, 2, 4, 8]))))
+        elif kind == "set":
+            k = int(rng.integers(1, max(2, n_cur // 4)))
+            idx = np.sort(rng.choice(n_cur, size=k, replace=False))
+            events.append(("set", idx.astype(np.int64), raw(k)))
+        elif kind == "join":
+            while True:
+                addr = int(rng.integers(1, 1 << 16))
+                if addr not in occupied:
+                    break
+            occupied.add(addr)
+            events.append(("join", addr, raw(1)[0]))
+            n_cur += 1
+        elif kind == "leave":
+            if n_cur <= 8:
+                continue
+            events.append(("leave", int(rng.integers(0, n_cur))))
+            n_cur -= 1
+        else:
+            events.append(("settle",))
+    return {"problem": problem_name, "n": n, "ring_seed": ring_seed,
+            "eng_seed": seed + 7, "data": data, "events": events,
+            "faults": fcfg}
+
+
+def phase_fault_parity(dev, sched: dict, wheel_kernels) -> None:
+    """One fault schedule on two armed engines in lockstep, event by
+    event: `wheel_kernels` vs every plain version. Full state, the
+    eviction timeline and the loss tally equal after every event and at
+    convergence."""
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import FaultConfig, get_problem, make_engine
+
+    name = sched["problem"]
+    kw = {"mean": dict(tau=0.0), "l2": dict(tau=1.0, dim=2)}.get(name, {})
+    problem = get_problem(name, **kw)
+    ring = Ring.random(sched["n"], 32, seed=sched["ring_seed"])
+    a, b = (make_engine("torch", ring, sched["data"],
+                        seed=sched["eng_seed"], device=dev, problem=problem,
+                        faults=FaultConfig(**sched["faults"]),
+                        wheel_kernels=wk)
+            for wk in (wheel_kernels, "none"))
+
+    def both_equal(where):
+        assert_same_state(a, b, where)
+        assert a.evictions == b.evictions, where
+        assert a.lost_to_fault == b.lost_to_fault, where
+        a.check_conservation()
+
+    for i, ev in enumerate(sched["events"]):
+        for e in (a, b):
+            if ev[0] == "step":
+                e.step(ev[1])
+            elif ev[0] == "set":
+                e.set_votes(ev[1], ev[2])
+            elif ev[0] == "join":
+                e.join(ev[1], vote=ev[2])
+            elif ev[0] == "leave":
+                e.leave(ev[1])
+            elif ev[0] == "crash":
+                e.crash(ev[1])
+            elif ev[0] == "settle":
+                res = e.run_until_converged(
+                    problem.global_output(e.data()), max_cycles=40_000)
+                assert res["converged"] == 1.0, (name, ev)
+        both_equal(f"({name}) after event {i} {ev[0]}")
+    for e in (a, b):
+        res = e.run_until_converged(problem.global_output(e.data()),
+                                    max_cycles=40_000)
+        assert res["converged"] == 1.0, name
+    both_equal(f"({name}) at convergence")
+    assert a.dropped == 0 and a.lost_to_fault > 0
+    log(f"  {name} seed {sched['eng_seed'] - 7} ({'crash' if sched['faults']['evict_after'] else 'drop'}"
+        f", kernels {wheel_kernels}): equal in full state after each of "
+        f"{len(sched['events'])} events and at convergence (t={a.t}, "
+        f"n={a.n}, evictions {a.evictions}, lost_to_fault "
+        f"{a.lost_to_fault})")
+
+
+class ArmedKernelCheck:
+    """Holds an armed engine's `descent_tail`, `threshold_step` and
+    `stage_rows` calls against their plain versions at the sizes the
+    armed cycle gives them (its window is as wide as the due slot's
+    alerts and probes). Installed on an engine, it wraps the three calls
+    the cycle makes, in that order; while `on`, a cycle whose descent
+    batch has at least `grow` times the rows of the widest checked so far
+    is checked: each call's inputs are cloned on the card, the kernel
+    runs as the engine runs it (its one counted launch), and the plain
+    version on the clones must give the same result exactly. The host
+    time spent cloning and checking (between syncs) is kept in `seconds`
+    so that a rate can leave it out."""
+
+    KEYS = ("_descent", "_thresh", "_stage")
+
+    def __init__(self, eng, dev, grow: float = 1.5):
+        from repro_torch.kernels import wheel as W
+
+        self.eng, self.dev, self.grow = eng, dev, grow
+        self.on, self.widest, self.widest_seen = False, 0, 0
+        self.cur, self.checked, self.seconds = None, [], 0.0
+        plain = {"_descent": W.descent_reference,
+                 "_thresh": W.threshold_step_reference,
+                 "_stage": W.stage_rows_reference}
+        self.real = {k: getattr(eng, k) for k in self.KEYS}
+        for k in self.KEYS:
+            setattr(eng, k, self._wrap(k, self.real[k], plain[k]))
+
+    def restart(self) -> None:
+        """Check the next cycle, whatever its width, and grow from it."""
+        self.on, self.widest = True, 0
+
+    def _held(self, fn):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(self.dev)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def _wrap(self, key, kern, plain):
+        import torch
+
+        name = {"_descent": "descent_tail", "_thresh": "threshold_step",
+                "_stage": "stage_rows"}[key]
+
+        def call(*args):
+            if key == "_descent":
+                rows = int(args[0].shape[0])
+                self.widest_seen = max(self.widest_seen, rows)
+                self.cur = None
+                if self.on and rows >= self.grow * self.widest:
+                    self.widest = rows
+                    self.cur = {"t": self.eng.t}
+                    self.checked.append(self.cur)
+            if self.cur is None:
+                return kern(*args)
+            clones = self._held(lambda: [
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args])
+            got = kern(*args)
+
+            def hold():
+                want = plain(*clones)
+                g = got if isinstance(got, tuple) else (got,)
+                w = want if isinstance(want, tuple) else (want,)
+                return max_abs_err(g, w)
+
+            err = self._held(hold)
+            assert err == 0, (f"{name} differs from its plain version on "
+                              f"the armed cycle t={self.cur['t']}")
+            rows = int(args[1 if key == "_thresh" else 0].shape[0])
+            self.cur[name] = rows
+            if key == "_descent":
+                self.cur["descent_live"] = self._held(
+                    lambda: int(args[4].sum()))
+            del clones
+            return got
+
+        return call
+
+
+def phase_armed_big(dev, n: int, max_cycles: int, p2_rows: dict) -> tuple:
+    """Majority at n peers armed with the harness's drop setting (probe-
+    only detector): the init storm, then a run toward the truth of at
+    most `max_cycles` cycles (converged or not: the figures say which),
+    then 30 cycles more. In both runs `ArmedKernelCheck` holds the three
+    wheel kernels of the armed cycle against their plain versions on the
+    cycles of a growing window (the first of each run, then each 1.5
+    times wider than the widest checked); the rate leaves the checks'
+    time out. `p2_rows` are phase 2's rows, printed beside these.
+    Returns the engine and its figures."""
+    import torch
+    from repro_torch.engine import FaultConfig
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    eng, votes, _ = make(n, dev, seed=5, mu=0.45, faults=FaultConfig(
+        p_drop=0.1, p_delay=0.05, suspect_after=25, evict_after=0, seed=9))
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    truth = int(2 * votes.sum() >= n)
+    chk = ArmedKernelCheck(eng, dev)
+    chk.restart()
+    t0 = time.perf_counter()
+    res = eng.run_until_converged(truth, max_cycles=max_cycles)
+    sync(dev)
+    dt = time.perf_counter() - t0 - chk.seconds
+    t_run, n_run = eng.t, len(chk.checked)
+    if res["converged"]:
+        assert (eng.outputs() == truth).all()
+    chk.restart()
+    eng.step(30)
+    sync(dev)
+    for k, fn in chk.real.items():
+        setattr(eng, k, fn)
+    assert n_run >= 1 and len(chk.checked) > n_run
+    for c in chk.checked:
+        assert {"descent_tail", "threshold_step", "stage_rows"} <= set(c), c
+    log(f"  armed kernels vs plain versions, exact on {len(chk.checked)} "
+        f"cycles ({n_run} in the run, the first and each 1.5x wider; the "
+        f"rest in 30 cycles after it): rows per call (cycle: descent_tail "
+        f"[live] / threshold_step / stage_rows) "
+        + "; ".join(f"t={c['t']}: {c['descent_tail']} [{c['descent_live']}]"
+                    f" / {c['threshold_step']} / {c['stage_rows']}"
+                    for c in chk.checked)
+        + f"; widest descent batch of any cycle {chk.widest_seen}; phase 2 "
+        f"(disarmed): {p2_rows['descent_tail']} / "
+        f"{p2_rows['threshold_step']} / {p2_rows['stage_rows']}; "
+        f"{chk.seconds:.2f} s of checking left out of the rate")
+    cons = eng.check_conservation()
+    assert eng.dropped == 0, "messages dropped (armed, n=1e6)"
+    assert cons["lost_to_fault"] > 0, "no row lost under p_drop = 0.1"
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else 0.0)
+    stats = {"init_s": t_init, "cycles": t_run,
+             "converged": bool(res["converged"]),
+             "cycles_per_s": t_run / dt,
+             "lost_to_fault": cons["lost_to_fault"],
+             "kernel_checks": chk.checked,
+             "widest_descent_rows": chk.widest_seen,
+             "peak_gb": peak, "awheel_gb": nbytes(eng._st.awheel) / 1e9,
+             "full_window_rows": eng.lanes * eng.window_l}
+    log(f"  armed n={n}: init storm {t_init:.2f} s (pad {eng.pad}, alert "
+        f"side-wheel {stats['awheel_gb']:.2f} GB, full window "
+        f"{stats['full_window_rows']} rows); "
+        f"{'converged to ' + str(truth) + ' in' if res['converged'] else 'not converged after'}"
+        f" {t_run} cycles at {t_run / dt:.2f} cycles/s; lost_to_fault "
+        f"{cons['lost_to_fault']}, dropped 0, conservation holds; peak "
+        f"{peak:.1f} GB (the checks' clones included)")
+    return eng, stats
+
+
+def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool) -> dict:
+    """Majority at n peers armed with the crash detector (suspect 25,
+    evict 150): converge, crash the `victims` rows, step in 25-cycle
+    dispatches until the detector has evicted them all, converge again;
+    every survivor must output the truth. With `exact`, nothing but the
+    crashed addresses may go; without, the live peers the detector
+    evicted as well are counted (the reference's detector convicts a
+    live peer on some schedules)."""
+    import numpy as np
+    from repro_torch.engine import FaultConfig
+
+    eng, votes, _ = make(n, dev, seed=seed, mu=0.45, faults=FaultConfig(
+        suspect_after=25, evict_after=150))
+    sweep, sweeps = eng._fault_sweep, []
+
+    def timed():
+        t0 = time.perf_counter()
+        sweep()
+        sweeps.append(time.perf_counter() - t0)
+
+    eng._fault_sweep = timed
+    res = eng.run_until_converged(int(2 * votes.sum() >= n))
+    assert res["converged"] == 1.0
+    gone = {int(eng.ring.addrs[i]) for i in victims}
+    for i in victims:
+        eng.crash(i)
+    t_crash, sweeps[:] = eng.t, []
+    evicted = lambda: {a for _, a in eng.evictions}
+    sync(dev)
+    t0 = time.perf_counter()
+    while not gone <= evicted() and eng.t - t_crash < 20 * 256:
+        eng.step(25)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    live_evicted = sorted(evicted() - gone)
+    assert gone <= evicted(), "a crashed peer was not evicted"
+    assert not live_evicted or not exact, f"live peers evicted: {live_evicted}"
+    assert not eng.dead_mask().any()
+    last = eng.evictions[-1][0] - t_crash
+    truth = int(2 * eng.votes().sum() >= eng.n)
+    res = eng.run_until_converged(truth)
+    assert res["converged"] == 1.0 and (eng.outputs() == truth).all()
+    cons = eng.check_conservation()
+    assert eng.dropped == 0 and cons["lost_to_fault"] > 0
+    out = {"seed": seed, "crashes": len(victims),
+           "cycles_to_last_eviction": last,
+           "live_evicted": [(c - t_crash, a) for c, a in eng.evictions
+                            if a in live_evicted],
+           "eviction_cycles": [c - t_crash for c, _ in eng.evictions],
+           "sweep_ms_mean": 1e3 * float(np.mean(sweeps)),
+           "sweep_ms_max": 1e3 * float(np.max(sweeps)), "sweeps": len(sweeps),
+           "cycles_per_s": (eng.evictions[-1][0] - t_crash) / dt,
+           "lost_to_fault": cons["lost_to_fault"]}
+    log(f"  armed n={n} seed {seed}: {len(victims)} crashes at spread "
+        f"addresses, all evicted by {last} cycles after the crash "
+        f"({out['eviction_cycles']}); live peers evicted as well: "
+        f"{out['live_evicted'] or 'none'}; {len(sweeps)} sweeps, host "
+        f"{out['sweep_ms_mean']:.1f} ms mean, {out['sweep_ms_max']:.1f} max"
+        f"; then converged to {truth} at t={eng.t} on the {eng.n} survivors"
+        f", dropped 0, lost_to_fault {cons['lost_to_fault']}, conservation "
+        f"holds")
+    return out
+
+
 # -- phases 4 and 5: the main path -------------------------------------------
 
 def phase_converge(dev, n: int) -> dict:
@@ -795,9 +1240,10 @@ def profile_churn_event(dev, eng, addr: int) -> dict:
             "join_launches": launches}
 
 
-def phase_profile(dev, eng, cycles: int) -> None:
+def phase_profile(dev, eng, cycles: int) -> dict:
     """Device time by kernel over a short window of cycles (device-side
-    events only: kernels, copies, memsets)."""
+    events only: kernels, copies, memsets). Returns the wall and device
+    ms and the device launches per cycle."""
     eng.step(2)
     sync(dev)
     t0 = time.perf_counter()
@@ -815,6 +1261,9 @@ def phase_profile(dev, eng, cycles: int) -> None:
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / cycles:9.1f} us/cycle "
             f"{e.count / cycles:5.1f}x  {e.key[:90]}")
+    return {"wall_ms_per_cycle": wall0 * 1e3 / cycles,
+            "device_ms_per_cycle": dev_us / 1e3 / cycles,
+            "launches_per_cycle": launches / cycles}
 
 
 # -- phase 8: the training substrate's kernels vs their plain versions ------
@@ -1286,6 +1735,8 @@ def main() -> int:
         f"{eng_a.lane_budget}, window_l {eng_a.window_l}, WW {sizes['window']}"
         f", narrow NT {dargs[0].shape[0]}, staged rows {sizes['staged']}")
     rows = phase_kernels(dev, sizes, iters=20)
+    p2_rows = {"descent_tail": int(dargs[0].shape[0]),
+               "threshold_step": sizes["window"], "stage_rows": sizes["staged"]}
     del eng_a, sizes, dargs
     torch.cuda.empty_cache()
 
@@ -1312,6 +1763,9 @@ def main() -> int:
         lambda e: e.apply_coalesced(np.arange(n3),
                                     votes_at(n3, 0.55,
                                              np.random.default_rng(5))))
+    reset_launches()
+    phase_parity_l2_any_dim(dev, n3, 9)
+    paths["l2_any_dim"] = launch_counts()
 
     log("phase 4: majority main path at n = 100,000")
     reset_launches()
@@ -1319,7 +1773,7 @@ def main() -> int:
     log("phase 5: n = 1,000,000 majority peers")
     big, big_stats = phase_big(dev, N_BIG, 100)
     paths["majority"] = launch_counts()
-    phase_profile(dev, big, 10)
+    big_stats["profile"] = phase_profile(dev, big, 10)
     del big
     torch.cuda.empty_cache()
 
@@ -1330,7 +1784,7 @@ def main() -> int:
     log("phase 7: L2 at n = 1,000,000 with churn")
     big, big_l2 = phase_big_churn(dev, N_BIG, events=16, gap=6)
     paths["mean_l2"] = launch_counts()
-    phase_profile(dev, big, 10)
+    big_l2["profile"] = phase_profile(dev, big, 10)
     free = int(np.setdiff1d(np.arange(1, 1 << 20, dtype=np.uint64),
                             big.ring.addrs)[7])
     big_l2.update(profile_churn_event(dev, big, free))
@@ -1355,6 +1809,38 @@ def main() -> int:
     sm, paths["train_smollm_threshold"] = phase_train_smollm(dev)
     torch.cuda.empty_cache()
 
+    log("phase 12: the fault plane, kernels-on vs plain engines on the "
+        "card: the differential harness's four fault schedules, and the "
+        "majority crash schedule without the threshold kernel")
+    reset_launches()
+    for cell in FAULT_GRID:
+        phase_fault_parity(dev, fault_schedule(*cell), "auto")
+    paths["armed"] = launch_counts()
+    reset_launches()
+    phase_fault_parity(dev, fault_schedule(*FAULT_GRID[0]),
+                       ("enqueue", "descent"))
+    paths["armed_no_threshold"] = launch_counts()
+    log(f"phase 13: the fault plane at scale: majority at n = {N_BIG:,} "
+        f"armed with drops and delays, toward convergence (at most "
+        f"{ARMED_BIG_CYCLES} cycles); n = {N_MID:,} with 16 crashes, "
+        f"evicted and reconverged")
+    reset_launches()
+    big, armed = phase_armed_big(dev, N_BIG, ARMED_BIG_CYCLES, p2_rows)
+    armed["profile"] = phase_profile(dev, big, 10)
+    del big
+    torch.cuda.empty_cache()
+    spread = lambda lo: [int(i) for i in np.linspace(lo, N_MID - lo, 16)]
+    armed["crash_1e5"] = phase_armed_crash(dev, N_MID, 41,
+                                           spread(N_MID // 64), exact=True)
+    # the schedule on which the reference's detector (its numpy oracle
+    # too) evicts a live neighbour of a crashed peer: every crashed peer
+    # must still go and the survivors converge; the live ones are counted
+    armed["crash_1e5_seed7"] = phase_armed_crash(dev, N_MID, 7,
+                                                 spread(1000), exact=False)
+    paths["armed"] = {k: v + paths["armed"][k]
+                      for k, v in launch_counts().items()}
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -1364,8 +1850,10 @@ def main() -> int:
 
     log("phase 11: kernels on their paths (majority wheel kernels: phases "
         "4-5; mean/L2: phases 6-7; majority without the threshold kernel: "
-        "phase 3; RG-9B trainer: phase 9; SmolLM threshold trainer: phase "
-        f"10): {json.dumps(paths)}")
+        "phase 3; L2 at D = 9 (the general L2 kernel): phase 3; RG-9B "
+        "trainer: phase 9; SmolLM threshold trainer: phase "
+        "10; armed: phases 12-13, without the threshold kernel: phase 12's "
+        f"last schedule): {json.dumps(paths)}")
     table = []
     for name, (src, rep) in SOURCES.items():
         table.append({"name": name, "route": "cuda", "source": src,
@@ -1374,7 +1862,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed})}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -124,6 +124,11 @@ def highbit(a: Array, d: int) -> Array:
     return _masked(x - (x >> _const(a, 1)), d)
 
 
+def depth(pos: Array, d: int) -> Array:
+    """Tree depth of a position: 0 for the root, else d - trailing_zeros."""
+    return _const(pos, d) - trailing_zeros(pos, d)
+
+
 @_wrapok
 def up(pos: Array, d: int) -> Array:
     """Parent position. UP(root)=root."""
@@ -157,6 +162,11 @@ def ccw(pos: Array, d: int) -> Array:
 def is_leaf(pos: Array) -> Array:
     """Addresses ending with a set bit (k = 0) have no descendants."""
     return (pos & _const(pos, 1)) != 0
+
+
+def span(pos: Array) -> Array:
+    """Half-width of the subtree address range: lowbit(pos); 0 for root."""
+    return lowbit(pos)
 
 
 @_wrapok
@@ -193,6 +203,19 @@ def in_cw_subtree(x: Array, y: Array, d: int) -> Array:
 
 
 @_wrapok
+def in_ccw_subtree(x: Array, y: Array, d: int) -> Array:
+    """Is y inside the counterclockwise subtree of x?  range (x - s, x - 1]."""
+    x, y = _arr(x), _arr(y)
+    s = lowbit(x)
+    one = _const(x, 1)
+    rel = _masked(y - (x - s) - one, d)
+    inside = rel < (s - one)
+    if _is_torch(x):
+        return torch.where(x == 0, torch.zeros_like(inside), inside)
+    return np.where(np.asarray(x) == 0, False, inside)
+
+
+@_wrapok
 def position_from_segment(prev: Array, self_addr: Array, d: int) -> Array:
     """Tree position of the peer owning segment (prev, self]; the wrapped
     segment (prev >= self) takes the root position 0."""
@@ -218,6 +241,11 @@ def direction_of(origin_pos: Array, self_pos: Array, d: int) -> Array:
     if _is_torch(self_pos):
         return torch.where(from_up, 0, torch.where(from_cw, 1, 2))
     return np.where(from_up, 0, np.where(from_cw, 1, 2))
+
+
+def descendant(pos: Array, direction: int, d: int) -> Array:
+    """The CW or CCW descendant of `pos` (`direction` is CW or CCW)."""
+    return cw(pos, d) if direction == CW else ccw(pos, d)
 
 
 def random_ring(n: int, d: int, seed: int, dtype=np.uint64) -> np.ndarray:

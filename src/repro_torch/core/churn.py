@@ -6,8 +6,8 @@ post-change snapshot carries the Alg. 2 (a_im2, a_im1, a_i) triple;
 `ChurnSchedule.apply` replays the ops on an engine and checks after every
 event that the engine's ring still equals the shadow ring. Crashes
 (`p_crash` / `range_fail`) keep their address in the shadow ring until a
-failure detector evicts it; the port's engine has no fault plane yet, so
-schedules for it are drawn with the default ``p_crash=0``.
+failure detector evicts it, so they replay on an engine armed with a
+fault plane (``faults=``), drift-free while no eviction lands mid-gap.
 """
 from __future__ import annotations
 

@@ -1,42 +1,56 @@
-"""The port's cycle engine (single device; majority, mean and L2
-problems; Alg. 2 churn).
+"""The port's cycle engines (single device; majority, mean and L2
+problems; Alg. 2 churn; the fault plane).
 
     from repro_torch.core.dht import Ring
-    from repro_torch.engine import make_engine
+    from repro_torch.engine import FaultConfig, make_engine
     eng = make_engine("torch", ring, votes, seed=0)   # on the GPU
     res = eng.run_until_converged(truth=1)
     eng.join(addr, vote=1); eng.leave(0)
+    armed = make_engine("torch", ring, votes,
+                        faults=FaultConfig(suspect_after=25, evict_after=150))
+    armed.crash(3); armed.step(200)          # detected and evicted
+    oracle = make_engine("numpy", ring, votes, seed=0)  # host numpy
 
 `make_engine("torch", ...)` builds a `TorchEngine` (engine.torch_backend)
 on CUDA unless ``device`` names another device; it raises when CUDA is
-absent rather than falling back to the CPU.
+absent rather than falling back to the CPU. `make_engine("numpy", ...)`
+builds the host oracle `NumpyEngine` (engine.numpy_backend), which has no
+device.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .base import EngineResult, FaultConfig, coalesced_update
+from .base import (EngineResult, FaultConfig, MajorityEngine,
+                   coalesced_update)
 from .problems import (MAJORITY, PROBLEMS, L2Thresh, Majority, MeanMonitor,
                        ThresholdProblem, get_problem)
 
-BACKENDS = ("torch",)
+BACKENDS = ("torch", "numpy")
 
 
 def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
                 **kwargs):
     """Construct the port's engine over `ring` with per-peer `votes`.
 
-    `backend` must be ``"torch"``. ``device=None`` means CUDA. Keyword
-    arguments are `TorchEngine`'s: ``capacity_per_peer`` (default 6, as
-    the reference), ``work_budget``, ``pad_to``, ``problem`` (an instance,
-    or "majority" / "mean" / "l2"; `votes` is then the raw data the
-    problem quantizes, and the wheel row width is P + 6) and
-    ``wheel_kernels`` ("auto": every CUDA kernel; "none": their plain
-    versions; or a subset of `kernels.wheel.WHEEL_KERNELS`).
+    `backend` is ``"torch"`` or ``"numpy"``. For torch, ``device=None``
+    means CUDA, and the keyword arguments are `TorchEngine`'s:
+    ``capacity_per_peer`` (default 6, as the reference), ``work_budget``,
+    ``pad_to``, ``problem`` (an instance, or "majority" /
+    "mean" / "l2"; `votes` is then the raw data the problem quantizes,
+    and the wheel row width is P + 6), ``wheel_kernels`` ("auto": every
+    CUDA kernel; "none": their plain versions; or a subset of
+    `kernels.wheel.WHEEL_KERNELS`) and ``faults`` (a `FaultConfig` arms
+    the fault plane). The numpy engine takes ``problem`` and ``faults``;
+    ``device`` means nothing to it.
     """
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown engine backend {backend!r}; want one of {BACKENDS}")
+    if backend == "numpy":
+        from .numpy_backend import NumpyEngine
+
+        return NumpyEngine(ring, votes, seed=seed, **kwargs)
     from .torch_backend import TorchEngine
 
     return TorchEngine(ring, votes, seed=seed, device=device, **kwargs)
@@ -49,10 +63,14 @@ def __getattr__(name):
         from . import torch_backend
 
         return getattr(torch_backend, name)
+    if name == "NumpyEngine":
+        from .numpy_backend import NumpyEngine
+
+        return NumpyEngine
     raise AttributeError(name)
 
 
 __all__ = ["BACKENDS", "DeviceState", "EngineResult", "FaultConfig",
-           "L2Thresh", "MAJORITY", "Majority", "MeanMonitor", "PROBLEMS",
-           "ThresholdProblem", "TorchEngine", "coalesced_update",
-           "get_problem", "make_engine"]
+           "L2Thresh", "MAJORITY", "Majority", "MajorityEngine",
+           "MeanMonitor", "NumpyEngine", "PROBLEMS", "ThresholdProblem",
+           "TorchEngine", "coalesced_update", "get_problem", "make_engine"]

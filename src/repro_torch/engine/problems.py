@@ -7,10 +7,10 @@ problem supplies its data width D, the host-side quantization
 `init_state` / `peer_data`, the signed `margin` over a (..., P) payload
 (P = D + 1) and the convergence predicate.
 
-`margin` and `test` take an array namespace `xp` as the reference's do;
-the engine passes ``torch`` and tensors. Quantization (`init_state`,
-`peer_data`) is host numpy; `global_output` reduces the quantized data on
-the host and evaluates the margin on a CPU tensor.
+`margin` and `test` take an array namespace `xp` as the reference's do,
+and work on what they are given: torch tensors (the engine) or numpy
+arrays (the host layer, `core.majority`). Quantization (`init_state`,
+`peer_data`) and `global_output` are host numpy.
 
 Exactness: integer margins wrap in int32 as the reference's device int32
 does; `L2Thresh`'s float32 margins keep the reference's unrolled
@@ -24,7 +24,11 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-Array = Any  # torch.Tensor
+Array = Any  # torch.Tensor | np.ndarray
+
+
+def _is_torch(a) -> bool:
+    return isinstance(a, torch.Tensor)
 
 
 class ThresholdProblem:
@@ -82,7 +86,7 @@ class ThresholdProblem:
         """Ground-truth decision from the quantized (n, D) data plane."""
         k = np.concatenate(
             [data.sum(0).astype(np.int64), [np.int64(data.shape[0])]])
-        return int(self.margin(torch, torch.from_numpy(k)) >= 0)
+        return int(self.margin(np, k) >= 0)
 
     def __repr__(self):
         return f"{type(self).__name__}()"
@@ -189,30 +193,39 @@ class L2Thresh(ThresholdProblem):
     def _proj(self, pay: Array) -> Array:
         """(..., M) tangent-half-space margins f_m = <s, u_m> - T*c, in
         the reference's order: p0*u0, then + pj*uj, then - Tf*c."""
-        U = torch.from_numpy(self.U).to(pay.device)
-        f = lambda j: pay[..., j].to(torch.float32)[..., None]
+        if _is_torch(pay):
+            U = torch.from_numpy(self.U).to(pay.device)
+            f = lambda j: pay[..., j].to(torch.float32)[..., None]
+            tf = float(self.Tf)
+        else:
+            U, tf = self.U, self.Tf
+            f = lambda j: pay[..., j].astype(np.float32)[..., None]
         acc = f(0) * U[:, 0]
         for j in range(1, self.data_width):  # unrolled, fixed op order
             acc = acc + f(j) * U[:, j]
-        return acc - float(self.Tf) * f(self.data_width)
+        return acc - tf * f(self.data_width)
 
     def margin(self, xp, pay: Array) -> Array:
-        return self._proj(pay).amax(-1)
+        p = self._proj(pay)
+        return p.amax(-1) if _is_torch(p) else p.max(-1)
 
     def test(self, xp, agg: Array, k: Array):
         """Region-wise safe-zone test: K outside -> the Alg. 3 comparison
         on the argmax half-space (the first maximum); K inside -> on
         every half-space (violation if any violates)."""
         pk = self._proj(k)                          # (..., M)
-        out = pk.amax(-1) >= 0
         m_star = pk.argmax(-1)                      # (...,)
         pa = self._proj(agg)                        # (..., 3, M)
         pka = self._proj(k[..., None, :] - agg)
         viol_m = ((pa >= 0) & (pka < 0)) | ((pa < 0) & (pka > 0))
-        sel = m_star[..., None, None].expand(*viol_m.shape[:-1], 1)
-        viol_out = torch.take_along_dim(viol_m, sel, -1)[..., 0]  # (..., 3)
-        send = torch.where(out[..., None], viol_out, viol_m.any(-1))
-        return send, out
+        if _is_torch(pk):
+            out = pk.amax(-1) >= 0
+            sel = m_star[..., None, None].expand(*viol_m.shape[:-1], 1)
+            viol_out = torch.take_along_dim(viol_m, sel, -1)[..., 0]
+            return torch.where(out[..., None], viol_out, viol_m.any(-1)), out
+        out = pk.max(-1) >= 0
+        viol_out = np.take_along_axis(viol_m, m_star[..., None, None], -1)
+        return np.where(out[..., None], viol_out[..., 0], viol_m.any(-1)), out
 
     def __repr__(self):
         return (f"L2Thresh(tau={self.tau}, dim={self.data_width}, "

@@ -26,10 +26,15 @@ How the JAX program maps onto eager PyTorch:
   * the cycle counter `t`, the event counter and the enqueue salt are
     mirrored on the host (they advance deterministically), so slot
     selection and the per-cycle permutation index are host integers and
-    the cycle runs without any host sync. The ``lax.cond`` branches are
-    branch-free here with the same bits (see `_cycle`);
+    a disarmed cycle runs without any host sync. An armed cycle makes one
+    host read: the due slot's largest lane count of ALERT and PROBE rows,
+    which sizes its window (the side-wheel is the reference's, sized for
+    the worst probe burst). The ``lax.cond`` branches are branch-free
+    here with the same bits (see `_cycle`);
   * `run_until_converged` reads the on-device convergence check once per
-    cycle (CUDA graphs and per-chunk syncing are later work);
+    cycle, in chunks of at most `CHUNK` checks (the reference's default
+    dispatch boundaries; CUDA graphs and per-chunk syncing are later
+    work);
   * churn is an event path: `join` / `leave` run on the device without
     reading it back; only the re-pad `_grow` copies the state to the
     host and back.
@@ -40,8 +45,19 @@ hand-written CUDA kernels. ``wheel_kernels`` names the enabled subset of
 `WHEEL_KERNELS` ("auto": all; "none": every plain PyTorch version, the
 parity surface); a majority engine whose subset leaves out "threshold"
 runs its event react through the `majority_step` kernel, as the
-reference does. The fault plane (``faults=``, `crash`) is a later slice
-and raises here.
+reference does.
+
+The fault plane (``faults=`` a `FaultConfig`, `crash`): a crashed peer's
+rows zero and it falls silent; rows due at a dead owner are lost, data
+rows are dropped or re-delayed by seeded hashes of their window index;
+every accept stamps its link's `heard`; links silent past
+``suspect_after`` emit PROBE rows (the HAS_EDGE flag 8) on the ALERT
+side-wheel, whose accept forces an ack Send; and after every `step`
+call and every convergence chunk `_fault_sweep` reads the stamps on the
+host and synthesizes the Alg. 2 leave of the peer the tree neighbours
+convict (`core.majority.elect_eviction`). Armed, the accept election runs
+its plain version with the probe plane (``due_dedup_reference(...,
+acc_p=)``), as the reference turns its fused dedup kernel off.
 """
 from __future__ import annotations
 
@@ -51,6 +67,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import addressing as A
+from repro_torch.core import notify as N
+from repro_torch.core.majority import (elect_eviction, eviction_grace,
+                                       monitored_links)
 from repro_torch.core.simulator import MAX_DELAY, MIN_DELAY
 from repro_torch.device import resolve_device
 from repro_torch.engine import protocol as P
@@ -74,6 +93,7 @@ M32 = 0xFFFFFFFF
 ORIGIN, DEST, EDGE, HAS_EDGE, PAY0 = range(5)
 CONT = 2   # HAS_EDGE bit 1: the row resumes an internal descent
 LATE = 4   # HAS_EDGE bit 2: the row already missed a drain window once
+PROBE = 8  # HAS_EDGE bit 3: a fault-plane liveness probe (not an ALERT)
 NO_ADDR = M32  # padded-ring sentinel: the row is vacant
 NO_MSG = M32   # DELIVER_T sentinel: the row is dead (fenced)
 
@@ -81,9 +101,7 @@ SLOTS = MAX_DELAY + 1   # delivery-wheel slots
 NPERM = 16              # per-cycle delay permutations kept in the state
 ALERT_W = 64            # ALERT side-wheel row baseline
 MAX_LANES = 8           # owner-lane count cap
-
-FAULTS_NOT_PORTED = ("the fault plane is not ported yet "
-                     "(ROADMAP.md, queue A: 'Fault plane')")
+CHUNK = 256             # the reference's default dispatch boundary
 
 # fields held as uint32 by the reference (int64 here)
 U32_FIELDS = frozenset({"addrs", "prev", "pos", "wheel", "awheel",
@@ -169,10 +187,10 @@ class DeviceState(NamedTuple):
     deferred: torch.Tensor  # (L,) int32 deliveries pushed past the budget
     enq: torch.Tensor      # (L,) int32 rows ever appended
     ret: torch.Tensor      # (L,) int32 rows ever drained
-    dead: torch.Tensor     # (pad,) bool   fault plane (idle in this slice)
-    heard: torch.Tensor    # (pad*3,) int32
-    probed: torch.Tensor   # (pad*3,) int32
-    lost: torch.Tensor     # (L,) int32
+    dead: torch.Tensor     # (pad,) bool    crashed, not yet evicted
+    heard: torch.Tensor    # (pad*3,) int32 last-accept cycle per link
+    probed: torch.Tensor   # (pad*3,) int32 last-probe cycle per link
+    lost: torch.Tensor     # (L,) int32     rows destroyed by injected faults
 
 
 class PeerPlane:
@@ -207,17 +225,15 @@ class PeerPlane:
 
 class TorchEngine:
     """Device-backed threshold engine (the `MajorityEngine` API of
-    `repro.engine.base`, minus the fault plane)."""
+    `engine.base`)."""
 
     backend = "torch"
 
     def __init__(self, ring, votes: Optional[np.ndarray], seed: int = 0,
                  capacity_per_peer: int = 6, work_budget: int = 0,
-                 pad_to: int = 0, problem=None, wheel_kernels="auto",
-                 faults=None, device="cuda",
+                 pad_to: int = 0, problem=None,
+                 wheel_kernels="auto", faults=None, device="cuda",
                  _state: Optional[DeviceState] = None):
-        if faults is not None:
-            raise NotImplementedError(FAULTS_NOT_PORTED)
         if ring.d > 32:
             raise ValueError(
                 f"torch engine needs d <= 32 (32-bit addresses), got d={ring.d}")
@@ -233,6 +249,23 @@ class TorchEngine:
         if bad:
             raise ValueError(f"unknown wheel kernels {sorted(bad)}; "
                              f"pick from {WHEEL_KERNELS}")
+        # fault plane: the seeded drop/delay draws and the host eviction
+        # sweep's state. Probe rows need the plain election, so the dedup
+        # kernel is off while armed, as in the reference
+        self._faults = faults
+        self._evictions = []
+        # (address, dir) -> cycle: the synchronous `heard` refresh the
+        # reference simulator performs at a churn event; the routed ALERT
+        # recipients' links only refresh on accept, cycles later
+        self._heard_floor = {}
+        self._evict_floor = -(1 << 30)  # conviction grace after evictions
+        if faults is not None:
+            wk = tuple(k for k in wk if k != "dedup")
+            fr = np.random.default_rng(np.uint32(faults.seed) ^ 0xFA17)
+            self._fsalt_drop = int(fr.integers(0, 2**32, dtype=np.uint64))
+            self._fsalt_delay = int(fr.integers(0, 2**32, dtype=np.uint64))
+            self._p_drop_thr = min(int(faults.p_drop * 2**32), 2**32 - 1)
+            self._p_delay_thr = min(int(faults.p_delay * 2**32), 2**32 - 1)
         # each kernel's wrapper (its CUDA kernel on CUDA tensors) where
         # enabled, else its plain version — "none" is the parity surface
         pick = lambda name, kern, plain: kern if name in wk else plain
@@ -294,6 +327,10 @@ class TorchEngine:
         self.lane_cap = max(4, min(128, 32 * self._cpp) // min(L, 4),
                             self._cpp * self.pad // (16 * L))
         self.lane_alert_w = max(16, ALERT_W // L)
+        if self._faults is not None:
+            # armed: every probe in the ring can target one owner's lane
+            # and slot in one cycle; size for it so none is dropped
+            self.lane_alert_w = max(self.lane_alert_w, 3 * self.pad + 16)
         self.lane_width = max(self.lane_cap, self.lane_budget) + self.lane_budget
         self.window_l = self.lane_alert_w + self.lane_budget
         self.narrow_l = max(self.lane_alert_w + 8, self.window_l // 8)
@@ -321,10 +358,9 @@ class TorchEngine:
             addrs=addrs_t, prev=prev,
             pos=A.position_from_segment(prev, addrs_t, self.d),
             n_live=torch.tensor(self.n, dtype=I32, device=dev),
-            wheel=z(L, SLOTS, self.lane_width, self.roww, dtype=I64),
-            wcnt=z(L, SLOTS),
-            awheel=z(L, SLOTS, self.lane_alert_w, self.roww, dtype=I64),
-            acnt=z(L, SLOTS),
+            # the empty arenas are allocated by `_adopt` in their storage
+            # (an armed side-wheel is 35 GB at n = 1e6: never twice)
+            wheel=None, wcnt=z(L, SLOTS), awheel=None, acnt=z(L, SLOTS),
             perms=torch.from_numpy(perms).to(dev),
             salt_enq=torch.tensor(salt, dtype=I64, device=dev),
             evt_ctr=z(), t=z(),
@@ -335,14 +371,17 @@ class TorchEngine:
 
     def _adopt(self, st: DeviceState) -> None:
         """Take `st` as this engine's state: copy it to the engine's device
-        into storage with one sentinel row past each scattered plane, and
-        mirror the host-side scalars."""
+        into storage with one sentinel row past each scattered plane (a
+        None arena is allocated there empty), and mirror the host-side
+        scalars."""
         dev = self.device
         want = {"x": (self.pad, self.dw), "inbox": (self.pad * NDIR, self.pw + 1),
                 "out": (self.pad, NDIR * self.pw + 1),
                 "wheel": (self.lanes, SLOTS, self.lane_width, self.roww),
                 "awheel": (self.lanes, SLOTS, self.lane_alert_w, self.roww)}
         for k, shape in want.items():
+            if getattr(st, k) is None and k in ("wheel", "awheel"):
+                continue
             if tuple(getattr(st, k).shape) != shape:
                 raise ValueError(f"state {k} has shape {tuple(getattr(st, k).shape)}"
                                  f", this sizing wants {shape}")
@@ -351,9 +390,16 @@ class TorchEngine:
         self._store = {}
         fields = {}
         for k in DeviceState._fields:
-            v = getattr(st, k).to(dev)
-            if k in ("inbox", "out", "wheel", "awheel"):
-                rows = v.reshape(-1, v.shape[-1])
+            v = getattr(st, k)
+            if v is None:
+                buf = torch.zeros((int(np.prod(want[k][:-1])) + 1,
+                                   want[k][-1]), dtype=I64, device=dev)
+                self._store[k] = buf
+                fields[k] = buf[:-1].view(want[k])
+                continue
+            v = v.to(dev)
+            if k in ("inbox", "out", "wheel", "awheel", "heard"):
+                rows = v.reshape(-1, v.shape[-1] if v.dim() > 1 else 1)
                 buf = torch.zeros((rows.shape[0] + 1, rows.shape[1]),
                                   dtype=v.dtype, device=dev)
                 buf[:-1].copy_(rows)
@@ -463,6 +509,8 @@ class TorchEngine:
         st = self._st
         out = knowledge_outputs(self.problem, st.inbox, st.x, self.pad).to(I32)
         ok = self.problem.converged(torch, out, truth) | ~self._plane.occ()
+        if self._faults is not None:
+            ok = ok | st.dead  # crashed, unevicted peers have no say
         return ok.all()
 
     # -- event path (full-width react, ranked append, hashed delays) --------
@@ -496,6 +544,8 @@ class TorchEngine:
         """Threshold test() + Send(v) for all `touched` peers (full-width
         event path: initialization and data changes)."""
         st, pd, pw = self._st, self.pad, self.pw
+        if self._faults is not None:
+            touched = touched & ~st.dead  # the dead never send
         viol, pay = self._test_phase()
         eff = viol & touched[:, None]
         seq = st.out[:, NDIR * pw] + eff.any(1).to(I32)
@@ -604,9 +654,14 @@ class TorchEngine:
                     < cnt[:, :, None]).reshape(L, SLOTS * width)
             rows = buf.reshape(L, SLOTS * width, roww)
             ok = rows[:, :, self._DT] != NO_MSG
+            stale = ((rows[:, :, ORIGIN] == pos_fix)
+                     | (rows[:, :, ORIGIN] == pos_var))
             if fence:
-                ok &= ((rows[:, :, ORIGIN] != pos_fix)
-                       & (rows[:, :, ORIGIN] != pos_var))
+                ok &= ~stale
+            elif self._faults is not None:
+                # the ALERT side-wheel is never origin-fenced, but the
+                # probes riding it are ordinary traffic under R3
+                ok &= ~(((rows[:, :, HAS_EDGE] & PROBE) != 0) & stale)
             inlane = (self._lane_of(rows[:, :, DEST].reshape(-1)).reshape(L, -1)
                       == lanes[:, None])
             keep = (live & ok & inlane).reshape(L, SLOTS, width)
@@ -663,6 +718,8 @@ class TorchEngine:
                                          device=dev))
         mv = mover_rows < pd
         mp = torch.where(mv, mover_rows, 0)
+        if self._faults is not None:
+            mv = mv & ~st.dead[mp]  # crashed peers are silent: no sends
         # a mover's X_in is now zero, so its knowledge is K = [x, 1] (rows
         # with ~mv only ever reach the sentinel rows)
         k = torch.cat([st.x[mp], torch.ones((2, 1), dtype=I32, device=dev)],
@@ -684,6 +741,13 @@ class TorchEngine:
         aown = self._owner_of(ap)
         valid, origin, dest, edge, has_edge = P.send_fields(
             ap, adirs, st.addrs[aown], st.prev[aown], d)
+        if self._faults is not None:
+            valid = valid & ~st.dead[aown]  # the dead emit no ALERTs
+            # the movers' links are fresh news: no aging the new occupants
+            # on stamps carried over from the old ones
+            self._plane.put_link(
+                "heard", torch.where(mv.repeat_interleave(NDIR), mlinks,
+                                     pd * NDIR), st.t)
         zero = torch.zeros(6, dtype=I64, device=dev)
         self._enqueue_events(valid, origin, dest, edge, has_edge,
                              zero[:, None].expand(6, pw), zero, alert=True)
@@ -763,12 +827,13 @@ class TorchEngine:
     def _cycle(self) -> None:
         """One simulation cycle, in place: drain each lane's due bucket,
         route, accept, react; stage every re-entering or new row with its
-        lane-relative delay ordinal; append to the owner lanes."""
-        st, pl, dev = self._st, self._plane, self.device
+        lane-relative delay ordinal; append to the owner lanes. Disarmed,
+        no host sync; armed, one host read of the due slot's largest lane
+        count of alerts, which sizes the window."""
+        st, pl, dev, f = self._st, self._plane, self.device, self._faults
         pd, d, L, pw = self.pad, self.d, self.lanes, self.pw
         Bl, Al = self.lane_budget, self.lane_alert_w
-        WWl, Wl, cap, roww = self.window_l, self.lane_width, self.lane_cap, self.roww
-        WW = L * WWl
+        Wl, cap, roww = self.lane_width, self.lane_cap, self.roww
         t = self._t
         s, s1 = t % SLOTS, (t + 1) % SLOTS
         # the due slot's rows; every read of `sbuf` (a view) happens
@@ -778,12 +843,22 @@ class TorchEngine:
         dcnt = st.wcnt[:, s].clone()
         n_data = torch.clamp(dcnt, max=Bl)
 
-        # lane-major window: per lane [A_l alert rows, B_l data rows]
-        w = torch.cat([st.awheel[:, s], sbuf[:, :Bl]], dim=1).reshape(WW, roww)
+        # lane-major window: per lane [Aw alert rows, B_l data rows]. An
+        # armed side-wheel is sized for the worst probe burst (3 pad + 16
+        # rows a lane-slot, 6.3 M at n = 1e6); its window takes only the
+        # due slot's largest lane count of alerts (a host read). Only rows
+        # past every lane's live alerts go, so no row changes its order
+        # and the bits are the full window's; the fault draws key on the
+        # full window's index (`wfull` below)
+        Aw = Al if f is None else int(n_alert.max())
+        WWl = Aw + Bl
+        WW = L * WWl
+        w = torch.cat([st.awheel[:, s, :Aw], sbuf[:, :Bl]], dim=1).reshape(
+            WW, roww)
         li = torch.arange(WWl, device=dev)
-        is_alert_l = li < Al
+        is_alert_l = li < Aw
         live = torch.where(is_alert_l[None, :], li[None, :] < n_alert[:, None],
-                           (li - Al)[None, :] < n_data[:, None]).reshape(WW)
+                           (li - Aw)[None, :] < n_data[:, None]).reshape(WW)
         is_alert = is_alert_l.expand(L, WWl).reshape(WW)
         has_alerts = n_alert.sum() > 0
         w_origin, w_dest, w_edge = w[:, ORIGIN], w[:, DEST], w[:, EDGE]
@@ -791,11 +866,36 @@ class TorchEngine:
         w_cont = (w[:, HAS_EDGE] & CONT) != 0
         w_pay = w[:, PAY0:PAY0 + pw]
         w_seq = _i32(w[:, self._SEQ])
+        if f is not None:
+            # probe rows ride the alert side-wheel but are not alerts: they
+            # route like data; an accept refreshes `heard` and forces Send
+            w_probe = (w[:, HAS_EDGE] & PROBE) != 0
+            is_alert = is_alert & ~w_probe
 
         owner = self._owner_of(w_dest)
         pos_i, a_prev, a_self = st.pos[owner], st.prev[owner], st.addrs[owner]
         self_seg = in_segment(w_origin, a_prev, a_self)
         max_addr = st.addrs[self.n - 1:self.n]
+
+        # ---- the injected faults at the due-scan: rows whose owner has
+        # crashed are lost (any kind); live data rows are dropped or
+        # re-delayed by seeded hashes of their window index (probes and
+        # ALERTs ride the reliable plane). Lost and delayed rows leave
+        # `live` before routing and are not charged this cycle
+        if f is not None:
+            lost_m = live & st.dead[owner]
+            is_data_row = ~is_alert & ~w_probe
+            wfull = (torch.arange(L, device=dev)[:, None] * self.window_l
+                     + torch.where(is_alert_l, li, li - Aw + Al)).reshape(WW)
+            if f.p_drop > 0.0:
+                lost_m = lost_m | (live & is_data_row & (
+                    hash_u32(wfull, t, self._fsalt_drop) < self._p_drop_thr))
+            delay_m = torch.zeros_like(live)
+            if f.p_delay > 0.0:
+                delay_m = live & is_data_row & ~lost_m & (
+                    hash_u32(wfull, t, self._fsalt_delay) < self._p_delay_thr)
+            live = live & ~lost_m & ~delay_m
+            n_lost_l = lost_m.reshape(L, WWl).sum(1, dtype=I32)
 
         # ---- Alg. 1 delivery: two full-width descent steps, then the
         # narrow tail for the few rows still descending
@@ -824,7 +924,8 @@ class TorchEngine:
             lv = stay
         # narrow tail: compact the survivors per lane (alerts come first
         # in each lane and narrow_l >= lane_alert_w, so only data spills)
-        NWl = self.narrow_l
+        # a narrow width past the window cannot spill: the same rows stay
+        NWl = min(self.narrow_l, WWl)
         NT = L * NWl
         lv_l = lv.reshape(L, WWl)
         sidx_l, scum_l = self._compact(lv_l, NWl)
@@ -859,8 +960,18 @@ class TorchEngine:
         acc_a = acc & is_alert
         sent = pd * NDIR  # scatter sentinel
         link_seq = pl.take_link(st.inbox, flat)[:, pw].contiguous()
-        winner, loser, fresh, alert_write, is_rep, aforce = self._dedup(
-            flat, acc_d, acc_a, w_seq, link_seq, sent)
+        if f is None:
+            winner, loser, fresh, alert_write, is_rep, aforce = self._dedup(
+                flat, acc_d, acc_a, w_seq, link_seq, sent)
+        else:
+            acc_p = acc & w_probe
+            acc_d = acc_d & ~w_probe
+            # every accept (data, duplicate, alert or probe) is proof of
+            # life on its link; t is monotone, so max == set
+            pl.put_link("heard", torch.where(acc, flat, sent), st.t)
+            (winner, loser, fresh, alert_write, is_rep, aforce,
+             pforce) = due_dedup_reference(flat, acc_d, acc_a, w_seq,
+                                           link_seq, sent, acc_p=acc_p)
         # one scatter: a fresh data write, or an alert zeroing a link with
         # no data winner (alert rows on one link all write zeros)
         data_idx = torch.where(fresh | alert_write, flat, sent)
@@ -883,6 +994,9 @@ class TorchEngine:
         viol, _, pay = self._rules(rin[..., :pw], self._out_pay(ro),
                                    pl.take_peer(st.x, rp))
         force = aforce[reps_safe] & has_alerts
+        if f is not None:
+            # the probe ack: an unconditional Send back on the probed link
+            force = force | pforce[reps_safe]
         eff = (viol | force) & rvalid[:, None]
         seq2 = ro[:, NDIR * pw] + eff.any(1).to(I32)
         ro2 = self._pack_out(torch.where(eff[..., None], pay, self._out_pay(ro)),
@@ -938,6 +1052,16 @@ class TorchEngine:
         f_edge = torch.where(fwd, o_edge, torch.where(spill, cur_e, w_edge))
         f_he = (torch.where(fwd, o_he, torch.where(spill, cur_h, w_has_edge)).long()
                 | torch.where(spill | loser, CONT, 0))
+        re_mask = fwd | loser | spill
+        re_alert = fwd & is_alert
+        if f is not None:
+            # forwarded probes keep their bit; a delayed row re-enters as a
+            # fresh delivery, except that a delayed mid-descent row keeps
+            # CONT (its network entry was already charged)
+            f_he = (f_he | torch.where(w_probe, PROBE, 0)
+                    | torch.where(delay_m & w_cont, CONT, 0))
+            re_mask = re_mask | delay_m
+            re_alert = fwd & (is_alert | w_probe)
         re_rows = torch.stack(
             [w_origin, f_dest, f_edge, f_he]
             + [w_pay[:, c] for c in range(pw)]
@@ -948,12 +1072,12 @@ class TorchEngine:
             [u(b_origin), u(b_dest), u(b_edge), u(b_he)]
             + [_u32(send_pay[:, c]) for c in range(pw)]
             + [u(bc(b_seq)), u(bc(b_seq))], dim=1).reshape(L, NDIR * WWl, roww)
-        re_mask = (fwd | loser | spill).reshape(L, WWl)
-        re_alert = (fwd & is_alert).reshape(L, WWl)
         blk_rows = torch.cat([re_rows, send_rows], dim=1)
-        blk_mask = torch.cat([re_mask, cand.reshape(L, NDIR * WWl)], dim=1)
+        blk_mask = torch.cat([re_mask.reshape(L, WWl),
+                              cand.reshape(L, NDIR * WWl)], dim=1)
         blk_alert = torch.cat(
-            [re_alert, torch.zeros((L, NDIR * WWl), dtype=torch.bool, device=dev)],
+            [re_alert.reshape(L, WWl),
+             torch.zeros((L, NDIR * WWl), dtype=torch.bool, device=dev)],
             dim=1)
         ordinal = torch.cumsum(blk_mask.to(I32), dim=1, dtype=I64) - 1
         h = (((t + 1) & M32) * 0x9E3779B1 + self._salt) & M32
@@ -968,27 +1092,65 @@ class TorchEngine:
         glive, galert = blk_mask.reshape(-1), blk_alert.reshape(-1)
         att_d, dro_d = self._append_rows("wheel", st.wcnt, grows, glane, gslot,
                                          glive & ~galert, cap)
-        # ALERT appends: only the first A_l re-entry rows of each lane's
-        # block can be alerts, so ranking that sub-block (same relative
-        # order) gives the reference's bits; with no alert live it writes
-        # only the sentinel row — the reference's lax.cond no-op
-        ab = lambda a: a.reshape(L, 4 * WWl, *a.shape[1:])[:, :Al].reshape(
-            L * Al, *a.shape[1:])
+        # ALERT appends: only the first Aw re-entry rows of each lane's
+        # block can be alerts (the probe block of an armed engine follows
+        # each lane's block), so ranking those sub-blocks in the same
+        # relative order gives the reference's bits; with no alert live
+        # it writes only the sentinel row — the reference's lax.cond no-op
+        ab = [a.reshape(L, 4 * WWl, *a.shape[1:])[:, :Aw]
+              for a in (grows, glane, gslot, glive & galert)]
+        if f is not None:
+            ab = [torch.cat([a, b], dim=1) for a, b in zip(ab, self._probes())]
         att_a, dro_a = self._append_rows(
-            "awheel", st.acnt, ab(grows), ab(glane), ab(gslot),
-            ab(glive & galert), Al)
+            "awheel", st.acnt, *[a.reshape(-1, *a.shape[2:]) for a in ab], Al)
 
         # ---- accounting (per lane): every first-entry live window row is
         # one consumed network delivery; continuations were already charged
         n_defer_l = (loser | spill).reshape(L, WWl).sum(1, dtype=I32)
-        n_cont_l = (live & w_cont).reshape(L, WWl).sum(1, dtype=I32)
-        st.messages_sent.add_(n_alert + n_data - n_cont_l)
+        if f is None:
+            n_cont_l = (live & w_cont).reshape(L, WWl).sum(1, dtype=I32)
+            st.messages_sent.add_(n_alert + n_data - n_cont_l)
+            st.ret.add_(n_alert + n_data)
+        else:
+            # only rows routed this cycle and not yet charged (CONT) consume
+            # a delivery; lost rows retire into the fault ledger
+            st.messages_sent.add_((live & ~w_cont).reshape(L, WWl).sum(
+                1, dtype=I32))
+            st.ret.add_(n_alert + n_data - n_lost_l)
+            st.lost.add_(n_lost_l)
         st.deferred.add_(n_late_new + n_defer_l)
         st.dropped.add_(dro_d + dro_a)
         st.enq.add_(att_d + att_a)
-        st.ret.add_(n_alert + n_data)
         st.t.add_(1)
         self._t += 1
+
+    def _probes(self):
+        """The failure detector's probe emission of this cycle: every link
+        of a live peer that is structurally valid and silent past
+        `suspect_after` (and not probed within that window) emits an
+        empty-payload PROBE row, due next cycle on the side-wheel. Stamps
+        `probed`; returns the (L, lane_rows * 3) lane-major block as
+        (rows, lane, slot, live), for the ALERT append."""
+        st, f, t, dev = self._st, self._faults, self._t, self.device
+        pd, L = self.pad, self.lanes
+        bc = lambda a: a[:, None].expand(pd, NDIR)
+        valid, org, dst, edge, he = P.send_fields(
+            bc(st.pos), torch.arange(NDIR, device=dev).expand(pd, NDIR),
+            bc(st.addrs), bc(st.prev), self.d)
+        mon = (valid & (torch.arange(pd, device=dev) < self.n)[:, None]
+               & ~st.dead[:, None])
+        want, _ = P.suspicion_rules(st.heard, st.probed, t, f.suspect_after,
+                                    f.evict_after)
+        emit = want.reshape(pd, NDIR) & mon
+        st.probed.masked_fill_(emit.reshape(-1), t)
+        zero = torch.zeros_like(org)
+        rows = torch.stack([org, dst, edge, he.long() | PROBE]
+                           + [zero] * self.pw
+                           + [zero, torch.full_like(org, (t + 1) & M32)],
+                           dim=2).reshape(L, -1, self.roww)
+        lane = self._lane_of(rows[:, :, DEST].reshape(-1)).reshape(L, -1)
+        return rows, lane, torch.full_like(lane, (t + 1) % SLOTS), emit.reshape(
+            L, -1)
 
     # -- public API ----------------------------------------------------------
 
@@ -1017,7 +1179,22 @@ class TorchEngine:
 
     @property
     def lost_to_fault(self) -> int:
+        """Messages destroyed by the injected fault plane (crashed owners
+        and `FaultConfig.p_drop`), itemized apart from `dropped`."""
         return int(self._st.lost.sum())
+
+    @property
+    def evictions(self):
+        """[(cycle, address), ...] leaves the failure detector synthesized."""
+        return list(self._evictions)
+
+    def dead_mask(self) -> np.ndarray:
+        """(n,) bool: crashed peers the detector has not yet evicted."""
+        return self._st.dead[: self.n].cpu().numpy().copy()
+
+    def last_heard(self) -> np.ndarray:
+        """(n,) cycle each peer's links last carried inbound traffic."""
+        return self._st.heard.reshape(-1, NDIR)[: self.n].amax(1).cpu().numpy()
 
     @property
     def deferral_rate(self) -> float:
@@ -1081,6 +1258,8 @@ class TorchEngine:
             self._grow(ring_after.n)
         self._join(int(addr), self.problem.peer_data(vote), k)
         self.ring = ring_after
+        if self._faults is not None:
+            self._stamp_churn_floor(N.join_event(ring_after, k), ring_after)
         return k
 
     def leave(self, idx: int) -> None:
@@ -1092,25 +1271,110 @@ class TorchEngine:
         ring_before = self.ring
         self._leave(int(idx))
         self.ring = ring_before.leave(idx)
+        if self._faults is not None:
+            self._stamp_churn_floor(
+                N.leave_event(self.ring, ring_before, idx), self.ring)
 
     def crash(self, idx: int) -> None:
-        raise NotImplementedError(FAULTS_NOT_PORTED)
+        """Abrupt-failure upcall: peer `idx` vanishes silently — its rows
+        zero and it never sends again, with no Alg. 2 notification; its
+        tree neighbours find it through the timeout detector. Rows in
+        flight toward it die at the due-scan (`lost_to_fault`). Requires
+        an armed fault plane (``faults=`` at construction)."""
+        if self._faults is None:
+            raise RuntimeError(
+                "crash() requires an armed fault plane (faults=FaultConfig)")
+        if self.n <= 1:
+            raise ValueError("cannot crash the last peer")
+        if not 0 <= idx < self.n:
+            raise IndexError(f"peer index {idx} out of range [0, {self.n})")
+        st = self._st
+        if bool(st.dead[idx]):
+            raise ValueError(f"peer {idx} is already dead")
+        lk = idx * NDIR + torch.arange(NDIR, device=self.device)
+        st.dead[idx] = True
+        st.x[idx] = 0
+        st.inbox[lk] = 0
+        st.out[idx] = 0
+
+    def _stamp_churn_floor(self, ev, ring_after) -> None:
+        """Record the synchronous `heard` refresh the reference simulator
+        performs at a churn event — the movers (owners of the two change
+        positions) on every direction, the routed ALERT recipients on the
+        alerted one — keyed by (address, dir) so it survives row shifts.
+        Until the routed alerts accept, the floor keeps `_fault_sweep`
+        from reading the re-healed links as silent."""
+        pos = ring_after.positions()
+        dt = ring_after.addrs.dtype
+        for p in (ev.pos_fix, ev.pos_var):
+            o = int(ring_after.owner(np.asarray([p], dt))[0])
+            if int(pos[o]) == int(p):
+                for dch in range(NDIR):
+                    self._heard_floor[(int(ring_after.addrs[o]), dch)] = self._t
+        for peer, dch in ev.notifs:
+            self._heard_floor[(int(ring_after.addrs[peer]), int(dch))] = self._t
+
+    def _fault_sweep(self) -> None:
+        """The failure detector's eviction pass, on the host, at dispatch
+        boundaries (after each `step` call and each convergence chunk):
+        read the stamps, elect the first-dark-hop accused peer
+        (`core.majority.elect_eviction`) and synthesize its Alg. 2 leave,
+        lowest address first, one per iteration, re-reading the shifted
+        stamps until none is convicted."""
+        f = self._faults
+        if f is None or not f.evict_after:
+            return
+        t = self._t
+        while self.n > 1:
+            st = self._st
+            heard = np.maximum(
+                st.heard.reshape(-1, NDIR)[: self.n].cpu().numpy(),
+                self._evict_floor)
+            if self._heard_floor:
+                row_of = {int(a): i for i, a in enumerate(self.ring.addrs)}
+                for (a, dch), ts in self._heard_floor.items():
+                    r = row_of.get(a)
+                    if r is not None and heard[r, dch] < ts:
+                        heard[r, dch] = ts
+            probed = st.probed.reshape(-1, NDIR)[: self.n].cpu().numpy()
+            dead = st.dead[: self.n].cpu().numpy()
+            _, evict = P.suspicion_rules(heard.ravel(), probed.ravel(), t,
+                                         f.suspect_after, f.evict_after)
+            pos = np.asarray(self.ring.positions())
+            peers, dirs, mon = monitored_links(self.ring, pos, dead)
+            if not (evict & mon).any():
+                return
+            target = elect_eviction(self.ring, pos, peers, dirs, mon, evict,
+                                    heard.ravel(),
+                                    eviction_grace(self.n, f.suspect_after))
+            if target < 0:
+                return
+            self._evictions.append((t, int(self.ring.addrs[target])))
+            self.leave(target)  # Alg. 2 verbatim: eviction IS a leave
+            self._evict_floor = t - f.evict_after + eviction_grace(
+                self.n, f.suspect_after)
 
     def step(self, cycles: int = 1) -> None:
-        """Advance `cycles` cycles (no host sync inside)."""
+        """Advance `cycles` cycles (disarmed, no host sync inside; armed,
+        one host read a cycle to size its window); an armed engine then
+        runs its eviction sweep (eviction timing follows the step
+        granularity, as the reference's)."""
         for _ in range(int(cycles)):
             self._cycle()
+        self._fault_sweep()
 
     def run_until_converged(self, truth: int, max_cycles: int = 200_000,
                             stable_for: int = 1) -> EngineResult:
         """Run until every peer outputs `truth`, checked on device before
-        each step (one host read of the check per cycle)."""
+        each step (one host read of the check per cycle), in chunks of at
+        most `CHUNK` checks; an armed engine runs its eviction sweep
+        after each chunk, at the reference's dispatch boundaries."""
         start_msgs = self.messages_sent
         state = {"stable": 0}
 
         def probe(budget: int):
             stable, done, used = state["stable"], False, 0
-            while not done and used < budget:
+            while not done and used < min(budget, CHUNK):
                 conv = bool(self._outputs_match(truth))
                 stable = stable + 1 if conv else 0
                 done = stable >= stable_for
@@ -1118,6 +1382,7 @@ class TorchEngine:
                     self._cycle()
                 used += 1
             state["stable"] = stable
+            self._fault_sweep()
             return done, used
 
         return run_convergence_loop(

@@ -21,11 +21,12 @@ from repro_torch.kernels._build import library
 
 # launches of each kernel since the last `reset_launches` (the wrapper
 # adds one exactly where it launches its kernel, nowhere else)
-# ("threshold_step" is its majority form; the mean and L2 forms and
-# `kernels.majority_step` count under their own names)
+# ("threshold_step" is its majority form; the mean form, the two L2
+# forms and `kernels.majority_step` count under their own names)
 LAUNCHES: Dict[str, int] = {"stage_rows": 0, "threshold_step": 0,
                             "due_dedup": 0, "descent_tail": 0,
                             "threshold_step_mean": 0, "threshold_step_l2": 0,
+                            "threshold_step_l2_general": 0,
                             "majority_step": 0, "threshold_gate": 0,
                             "rglru_scan": 0, "flash_attention_fwd": 0}
 

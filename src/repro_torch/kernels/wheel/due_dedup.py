@@ -45,11 +45,17 @@ _REC = 8  # uint32 cells per peer record
 _PLANES: Dict[Tuple[torch.device, int], List] = {}
 
 
-def due_dedup_reference(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
+def due_dedup_reference(flat, acc_d, acc_a, w_seq, link_seq, nl: int,
+                        acc_p=None):
     """Plain version: the dense scatter-max plane formulation. `flat`
     (WW,) int64 link ids in [0, nl); acc_d/acc_a (WW,) bool; w_seq and
     link_seq (WW,) int32. Returns (winner, loser, fresh, alert_write,
-    is_rep (WW,) bool, aforce (WW, 3) bool)."""
+    is_rep (WW,) bool, aforce (WW, 3) bool).
+
+    With `acc_p` (the accepting fault-plane probes, which the kernel does
+    not take: an armed engine runs this version) a third plane ``pbest``
+    joins the representative election, and a seventh output, pforce
+    (WW, 3) bool, marks the links whose probe forces the ack Send."""
     ww = flat.shape[0]
     wi = torch.arange(ww, dtype=torch.int32, device=flat.device)
 
@@ -69,10 +75,19 @@ def due_dedup_reference(flat, acc_d, acc_a, w_seq, link_seq, nl: int):
     fresh = winner & (w_seq > floor)
     alert_write = acc_a & (best_w < 0)
     recv = flat // NDIR
-    rep_w = torch.maximum(best, abest).reshape(-1, NDIR).amax(1)[recv]
-    is_rep = (acc_d | acc_a) & (wi == rep_w)
+    cand = torch.maximum(best, abest)
+    acc = acc_d | acc_a
+    if acc_p is not None:
+        pbest = plane(acc_p)
+        cand = torch.maximum(cand, pbest)
+        acc = acc | acc_p
+    rep_w = cand.reshape(-1, NDIR).amax(1)[recv]
+    is_rep = acc & (wi == rep_w)
     aforce = abest.reshape(-1, NDIR)[recv] >= 0
-    return winner, loser, fresh, alert_write, is_rep, aforce
+    if acc_p is None:
+        return winner, loser, fresh, alert_write, is_rep, aforce
+    pforce = pbest.reshape(-1, NDIR)[recv] >= 0
+    return winner, loser, fresh, alert_write, is_rep, aforce, pforce
 
 
 _ARGS = [P, P, P, P, P, I64, I64, P, U32, I32, I32] + [P] * 7

@@ -10,9 +10,13 @@ Replaces the Pallas kernel `threshold_step_kernel`
 ``kernels/csrc/threshold_step.cu``. The Pallas kernel traces any
 problem's `test` inside its body; CUDA has one kernel per problem the
 port ships — majority and mean (linear margins, P = 2) and L2 (the
-tangent-half-space cover, P = D + 1, the (M, D) cover in shared memory)
-— and the wrapper raises for any other problem. On the H100 each is
-bound by bytes (one thread per peer, elementwise).
+tangent-half-space cover, P = D + 1, for any D and any cover size M: the
+cover in shared memory for D <= 8 and M D <= 12,288 floats, else a
+general kernel that streams it in tiles of directions through the
+read-only cache, whose launches count as "threshold_step_l2_general") —
+and the wrapper raises for any other problem. One thread per peer,
+elementwise; majority and mean are bound by bytes, L2 by bytes or, for
+large covers, by its float operations.
 """
 from __future__ import annotations
 
@@ -25,10 +29,6 @@ from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
 from repro_torch.kernels.wheel._common import (F32, I32, I64, P, bind,
                                                check_args, launched, on_cuda,
                                                ptr, stream_of)
-
-L2_MAX_DIM = 8                 # the CUDA source instantiates D = 1..8
-_SMEM_FLOATS = 48 * 1024 // 4  # static shared-memory budget for the cover
-
 
 def threshold_step_reference(problem, in_pay: torch.Tensor,
                              out_pay: torch.Tensor, x: torch.Tensor):
@@ -53,13 +53,25 @@ def _cover(problem: L2Thresh, dev: torch.device) -> torch.Tensor:
 
 _ARGS_LINEAR = [P, P, P, I32, I32, I64, P, P, P, P]
 _ARGS_L2 = [P, P, P, P, I32, I32, F32, I64, P, P, P, P]
+# the shared-memory L2 form's reach (kL2MaxDim, kSmemFloats in the source)
+L2_SMEM_MAX_DIM = 8
+L2_SMEM_FLOATS = 12_288
+
+
+def l2_kernel_name(dim: int, ndirs: int) -> str:
+    """The L2 kernel a (D, M) problem launches, as its launches count:
+    "threshold_step_l2" (the cover in shared memory) or
+    "threshold_step_l2_general"."""
+    if dim <= L2_SMEM_MAX_DIM and dim * ndirs <= L2_SMEM_FLOATS:
+        return "threshold_step_l2"
+    return "threshold_step_l2_general"
 
 
 def threshold_step(problem, in_pay: torch.Tensor, out_pay: torch.Tensor,
                    x: torch.Tensor):
     """The plain version on the CPU; on CUDA the problem's kernel, for
     int32 in_pay/out_pay (N,3,P) and x (N,D) (majority, mean: P = 2;
-    L2: P = D + 1, D <= 8)."""
+    L2: P = D + 1, any D)."""
     if not on_cuda(in_pay):
         return threshold_step_reference(problem, in_pay, out_pay, x)
     if not isinstance(problem, (Majority, MeanMonitor, L2Thresh)):
@@ -82,14 +94,10 @@ def threshold_step(problem, in_pay: torch.Tensor, out_pay: torch.Tensor,
     outs = (ptr(viol), ptr(out), ptr(pay), stream_of(dev))
     if isinstance(problem, L2Thresh):
         u = _cover(problem, dev)
-        m = u.shape[0]
-        if not 1 <= dw <= L2_MAX_DIM or m * dw > _SMEM_FLOATS:
-            raise ValueError(
-                f"threshold_step: the L2 kernel takes D <= {L2_MAX_DIM} and "
-                f"M*D <= {_SMEM_FLOATS} cover floats, got D={dw}, M={m}")
-        fn = bind("threshold_step", "rt_threshold_step_l2", _ARGS_L2)
-        launched("threshold_step_l2", fn(*common, ptr(u), m, dw,
-                                         float(problem.Tf), n, *outs))
+        name = l2_kernel_name(dw, u.shape[0])
+        fn = bind("threshold_step", "rt_" + name, _ARGS_L2)
+        launched(name, fn(*common, ptr(u), u.shape[0], dw, float(problem.Tf),
+                          n, *outs))
     else:  # linear margin a q - b c
         if isinstance(problem, MeanMonitor):
             if not -2**31 <= problem.T < 2**31:

@@ -8,7 +8,9 @@ host that has only the port's dependencies:
 Each hand-written kernel is held against its plain PyTorch version on
 the same CUDA inputs at the n = 1e6 shapes of the main path, and the
 engine with its kernels against the engine with their plain versions
-(majority, mean and L2, under churn). Every comparison is exact
+(majority, mean and L2, under churn; L2 at D = 9 on the general kernel;
+armed with the fault plane through crashes and drops). Every comparison
+is exact
 (tolerance 0): the kernels are integer code, and the L2 kernel's float32
 margins keep the plain version's operation order.
 
@@ -30,7 +32,7 @@ import torch
 from repro_torch.core import addressing as A
 from repro_torch.core.churn import random_schedule
 from repro_torch.core.dht import Ring
-from repro_torch.engine import make_engine
+from repro_torch.engine import FaultConfig, make_engine
 from repro_torch.engine.convert import state_to_numpy
 from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -49,6 +51,7 @@ from repro_torch.kernels.wheel import (LAUNCHES, descent_reference,
                                        stage_rows_reference, threshold_step,
                                        threshold_step_reference)
 from repro_torch.kernels.wheel._common import in_segment, stream_of
+from repro_torch.kernels.wheel.threshold_step import l2_kernel_name
 
 WW_1E6 = 262_272          # drain-window rows per cycle at n = 1e6
 NL_1E6 = 3 * 2**21        # per-link plane cells at n = 1e6
@@ -130,16 +133,23 @@ def l2_inputs(rng, n, dim, scale=256):
 
 @pytest.mark.parametrize("n,dim,ndirs,tau", [
     (WW_1E6, 2, 16, 1.0), (PAD_1E6, 2, 16, 1.0), (4099, 1, 16, 0.5),
-    (4099, 3, 6, 0.0), (4099, 3, 16, 1.0), (4099, 8, 20, 1.0)])
+    (4099, 3, 6, 0.0), (4099, 3, 16, 1.0), (4099, 8, 20, 1.0),
+    # the general kernel: D > 8, and a cover past the 12,288 floats of
+    # shared memory (16,384 at D = 16; 16,384 at D = 4 with 4,096 dirs)
+    (PAD_1E6, 9, 18, 1.0), (4099, 9, 18, 0.0), (4099, 16, 1024, 1.0),
+    (4099, 4, 4096, 1.0)])
 def test_threshold_step_l2_kernel_matches_plain(cuda, n, dim, ndirs, tau):
     prob = L2Thresh(tau=tau, dim=dim, ndirs=ndirs)
     rng = np.random.default_rng(n + dim)
     args = [torch.from_numpy(a).to(cuda) for a in l2_inputs(rng, n, dim)]
     want = threshold_step_reference(prob, *args)
-    before = LAUNCHES["threshold_step_l2"]
+    form = l2_kernel_name(dim, ndirs)
+    assert (form == "threshold_step_l2_general") == (
+        dim > 8 or dim * ndirs > 12_288)
+    before = LAUNCHES[form]
     got = threshold_step(prob, *args)
     torch.cuda.synchronize()
-    assert LAUNCHES["threshold_step_l2"] == before + 1
+    assert LAUNCHES[form] == before + 1
     _same(got, want)
 
 
@@ -282,8 +292,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # L2 with D = 2 wants P = 3
         threshold_step(L2Thresh(dim=2), z(4, 3, 2), z(4, 3, 2), z(4, 2))
-    with pytest.raises(ValueError):  # no instantiation above D = 8
-        threshold_step(L2Thresh(dim=9), z(4, 3, 10), z(4, 3, 10), z(4, 9))
     with pytest.raises(ValueError):
         majority_step(z(4, 3), z(4, 3), z(4, 3), z(4, 3), z(5))
     i64 = torch.zeros(8, dtype=torch.int64, device=cuda)
@@ -314,8 +322,9 @@ def test_engine_kernels_match_plain_and_launch(cuda):
     assert counts == {"stage_rows": 120, "threshold_step": 120,
                       "due_dedup": 120, "descent_tail": 120,
                       "threshold_step_mean": 0, "threshold_step_l2": 0,
-                      "majority_step": 0, "threshold_gate": 0,
-                      "rglru_scan": 0, "flash_attention_fwd": 0}
+                      "threshold_step_l2_general": 0, "majority_step": 0,
+                      "threshold_gate": 0, "rglru_scan": 0,
+                      "flash_attention_fwd": 0}
     sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
     for k in sa:
         assert np.array_equal(sa[k], sb[k]), k
@@ -360,6 +369,71 @@ def test_engine_problems_kernels_match_plain_under_churn(cuda, name):
         assert np.array_equal(sa[k], sb[k]), k
     assert engs[0].dropped == 0
     engs[0].check_conservation()
+
+
+def test_engine_l2_any_dim_kernels_match_plain(cuda):
+    """An L2 engine at D = 9 (the general kernel) with the CUDA kernels vs
+    with their plain versions, through a data flip: full state equal."""
+    n, dim = 4096, 9
+    rng = np.random.default_rng(15)
+    ring = Ring.random(n, 32, seed=15)
+    prob = L2Thresh(tau=1.0, dim=dim)
+    c = np.zeros(dim)
+    c[:2] = 0.6, -0.8
+    data = rng.normal(1.3 * c, 0.9, (n, dim))
+    engs = [make_engine("torch", ring, data, seed=16, capacity_per_peer=8,
+                        problem=prob, wheel_kernels=wk)
+            for wk in ("auto", "none")]
+    reset_launches()
+    new = rng.normal(0.45 * c, 0.9, (n, dim))
+    for e in engs:
+        e.step(40)
+        e.apply_coalesced(np.arange(n), new)
+        e.step(40)
+    counts = launch_counts()
+    assert counts["threshold_step_l2_general"] == 40 + 1 + 40
+    assert counts["threshold_step_l2"] == 0
+    sa, sb = state_to_numpy(engs[0]._st), state_to_numpy(engs[1]._st)
+    for k in sa:
+        assert np.array_equal(sa[k], sb[k]), k
+    assert engs[0].dropped == 0
+
+
+@pytest.mark.parametrize("mode", ["crash", "drop"])
+def test_engine_fault_plane_kernels_match_plain(cuda, mode):
+    """Armed engines with the CUDA kernels vs with their plain versions,
+    through crashes and their evictions (or a lossy run) and a join:
+    full state, evictions and losses equal; the dedup kernel stays off."""
+    n = 2048
+    ring = Ring.random(n, 32, seed=17)
+    votes = (np.random.default_rng(17).random(n) < 0.45).astype(np.int64)
+    f = (FaultConfig(suspect_after=25, evict_after=150, seed=3)
+         if mode == "crash" else
+         FaultConfig(p_drop=0.1, p_delay=0.05, suspect_after=25, seed=3))
+    reset_launches()
+    engs = [make_engine("torch", ring, votes, seed=18, capacity_per_peer=8,
+                        faults=f, wheel_kernels=wk) for wk in ("auto", "none")]
+    for e in engs:
+        e.step(40)
+        if mode == "crash":
+            for k in (100, 900, 1500):
+                e.crash(k)
+        for _ in range(36):  # the eviction sweep runs after each step
+            e.step(10)
+        e.join(12345, vote=1)
+        e.step(40)
+    counts = launch_counts()
+    assert counts["due_dedup"] == 0
+    assert min(counts[k] for k in ("stage_rows", "threshold_step",
+                                   "descent_tail")) > 0
+    a, b = engs
+    sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
+    for k in sa:
+        assert np.array_equal(sa[k], sb[k]), k
+    assert a.evictions == b.evictions and a.lost_to_fault == b.lost_to_fault
+    assert len(a.evictions) == (3 if mode == "crash" else 0)
+    assert a.lost_to_fault > 0 and a.dropped == 0
+    a.check_conservation()
 
 
 def test_engine_majority_step_route_matches_plain(cuda):

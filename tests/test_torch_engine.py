@@ -25,7 +25,7 @@ import torch
 from repro.core.dht import Ring as JRing
 from repro.engine.jax_backend import JaxEngine
 from repro_torch.core.dht import Ring
-from repro_torch.engine import FaultConfig, TorchEngine, make_engine
+from repro_torch.engine import TorchEngine, make_engine
 from repro_torch.engine.convert import state_from_numpy, state_to_numpy
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_majority.json")
@@ -188,8 +188,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_later_slices_raise():
-    """What is not ported raises: the fault plane (``faults=``, `crash`),
-    naming its ROADMAP item; unknown backends and wheel kernels."""
+    """What the port refuses raises: unknown backends and wheel kernels,
+    and `crash` on an engine whose fault plane is not armed (a
+    RuntimeError, as the reference's)."""
     ring = Ring.random(48, 32, seed=0)
     votes = np.zeros(48, np.int64)
     with pytest.raises(ValueError):
@@ -197,11 +198,9 @@ def test_later_slices_raise():
     with pytest.raises(ValueError, match="bogus"):
         make_engine("torch", ring, votes, device="cpu",
                     wheel_kernels=("bogus",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine("torch", ring, votes, device="cpu", faults=FaultConfig())
     eng = make_engine("torch", ring, votes, device="cpu",
                       capacity_per_peer=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="armed fault plane"):
         eng.crash(0)
     # the serve-layer flush re-enters the event react
     assert eng.apply_coalesced(np.array([3, 7]), np.array([1, 1])) == 2

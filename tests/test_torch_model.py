@@ -170,10 +170,15 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 assert not any(k.split('.')[0] in ('jax', 'repro') for k in sys.modules)
-print(len(mods))
+print(' '.join(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=dict(os.environ, PYTHONPATH=SRC),
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40
+    mods = set(out.stdout.split())
+    assert len(mods) >= 45
+    # the fault plane's host layer and numpy oracle among them
+    assert {f"repro_torch.{m}" for m in (
+        "core.routing", "core.notify", "core.majority", "core.simulator",
+        "engine.numpy_backend")} <= mods
