@@ -10,7 +10,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      each kernel's registers as ptxas reports them, and the count of
      HGMMA (wgmma) instructions in each `flash_attention_fwd`
      instantiation from `cuobjdump -sass` (bf16 > 0: the tensor cores;
-     float32 0; bf16 D = 256 with no spills);
+     float32 0; bf16 D = 256 with no spills), and the general L2
+     kernel's registers, static shared memory and spills;
   2. holds each kernel against its plain PyTorch version on the card at
      the n = 1e6 shapes (exact equality), and times kernel and plain: the
      four wheel kernels (`stage_rows` at row width 8 and at the L2 path's
@@ -19,9 +20,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      scratch), the mean and L2 forms of `threshold_step` at the drain
      window (WW rows) and the event react (pad rows), the general L2
      kernel at D = 9 (M = 18, pad rows) and with a 16,384-float cover
-     (D = 16, M = 1,024, WW rows), `majority_step` at pad rows, and
-     `descent_tail` on a real cycle's narrow tail beside the card's
-     launch floor (the device time of `torch.zeros(1)`);
+     (D = 16, M = 1,024, WW rows; beside its bound, the unfused
+     FP32 issue-rate floor), each with its launch shape, `majority_step`
+     at pad rows, and `descent_tail` on a real cycle's narrow tail beside
+     the card's launch floor (the device time of `torch.zeros(1)`); then
+     the L2 forms' CUDA tests (tests/test_torch_cuda.py, the general
+     kernel's tiling cases among them) in a pytest process of their own;
   3. runs the engine with its kernels and with their plain versions, both
      on the card, at n = 4096: majority for 300 cycles; mean (tau 0.3)
      and L2 (tau 1, D 2) through a data flip and 8 churn events 20 cycles
@@ -76,9 +80,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      and the same on ring seed 7, where the reference's detector also
      evicts a live neighbour of a crashed peer: every crashed peer must
      go, the live ones evicted are reported;
+ 14. L2 at D = 9 with its default cover (M = 18: the general kernel) at
+     n = 1,000,000: the init storm and 100 cycles, the kernel held
+     exactly against its plain version on clones of its inputs on 2 more
+     cycles, then a device-time profile of 10 cycles with the general
+     kernel's share;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
-     threshold kernel, phase 3's L2 at D = 9, phases 4-5, phases 6-7,
+     threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
      schedule): every kernel the path runs launched at least once, every
      other kernel never (`due_dedup` never on the armed paths: an armed
@@ -107,6 +116,10 @@ ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32 peak; the int32 work
 # of these kernels is priced at this rate (the data sheet lists no int32
 # ALU rate)
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+# one FMUL or FADD a lane a clock: 132 SMs x 128 FP32 lanes x 1.98 GHz
+# (H100 SXM boost clock). The L2 form rounds every product and sum on its
+# own, so it cannot use the FFMA that ALU_OPS_PER_S counts as two
+FP32_ISSUE_PER_S = 132 * 128 * 1.98e9
 N_BIG = 1_000_000
 N_MID = 100_000
 ARMED_BIG_CYCLES = 2000  # the armed 1e6 run's cap: converged or not
@@ -167,10 +180,14 @@ OPS_PER_ROW = {"stage_rows": 1, "threshold_step": 40, "due_dedup": 30,
                "threshold_step_mean": 40, "majority_step": 40}
 
 
-def l2_ops_per_row(dim: int, ndirs: int) -> int:
-    """Float operations of the L2 form per peer: 7 projections (K, and A
-    and K - A per direction) of 2D + 1 operations and 7 sign tests per
-    cover direction, plus the int32 sums (~10 P)."""
+def l2_ops_per_row(dim: int, ndirs: int, general: bool = False) -> int:
+    """Float operations of an L2 form per peer: 7 projections (K, and A
+    and K - A per direction) of 2D + 1 operations (D products, D - 1 sums,
+    Tf c and the difference) and 7 sign tests per cover direction, plus
+    the int32 sums (~10 P). The general form (`general`) rounds the 7
+    Tf c products once a row, so a direction costs 7 2D + 7."""
+    if general:
+        return ndirs * (14 * dim + 7) + 7 + 10 * (dim + 1)
     return ndirs * (7 * (2 * dim + 1) + 7) + 10 * (dim + 1)
 
 
@@ -207,27 +224,45 @@ def time_ms(fn, dev, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def profiled(fn, dev):
+    """Run `fn` under the profiler's device trace, after a first run of it
+    in the profiler's warm-up step (`device_events`): (device
+    microseconds, device events: kernels, copies, memsets)."""
+    _, ev = device_events(dev, fn, warmup=fn, cpu=False)
+    return (sum(e.self_device_time_total for e in ev),
+            sum(e.count for e in ev))
+
+
 def device_ms(fn, dev, iters: int) -> float:
     """Mean device milliseconds per call: the summed duration of the
     kernels (and copies) the call ran, from the profiler's device trace —
-    host launch overhead and host syncs excluded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    host launch overhead and host syncs excluded. A session that holds
+    fewer device events than `iters` calls launch is refused and profiled
+    again (a session may come back empty or drop events): a call launches
+    at least its counted kernels (`LAUNCHES` around one call), and one
+    with none counted (a plain version) at least the events of a
+    one-call session."""
+    from repro_torch.kernels.wheel import LAUNCHES
 
     if dev.type != "cuda":  # CPU rehearsal of the script: wall time
         return time_ms(fn, dev, iters)
+    k0 = sum(LAUNCHES.values())
     fn()
     sync(dev)
-    for _ in range(3):  # a session may come back empty: profile again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            sync(dev)
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+    per_call = sum(LAUNCHES.values()) - k0
+    seen = []
+    for _ in range(5):
+        if per_call == 0:
+            per_call = max(1, profiled(fn, dev)[1])
+        us, n_ev = profiled(lambda: [fn() for _ in range(iters)], dev)
+        if us > 0 and n_ev >= iters * per_call:
             return us / 1e3 / iters
-    raise RuntimeError("the profiler recorded no device time")
+        seen.append(n_ev)
+        log(f"  profile refused: {n_ev} device events for {iters} calls "
+            f"of {per_call}")
+    raise RuntimeError(f"the profiler recorded {seen} device events in "
+                       f"five sessions of {iters} calls, fewer than "
+                       f"{iters * per_call}")
 
 
 def cold_ms(fn, dev, iters: int):
@@ -374,6 +409,7 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     from repro_torch.engine.problems import L2Thresh, Majority, MeanMonitor
     from repro_torch.kernels import majority_step as MS
     from repro_torch.kernels import wheel as W
+    from repro_torch.kernels.wheel.threshold_step import l2_general_geometry
 
     rng = np.random.default_rng(2026)
     rows = {}
@@ -492,8 +528,19 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
               lambda *a, p=prob: W.threshold_step(p, *a),
               lambda *a, p=prob: W.threshold_step_reference(p, *a), args,
               n_rows, max(1, iters // 10),
-              ops_per_row=l2_ops_per_row(dim, ndirs), tag=tag,
-              main=dim == 9)
+              ops_per_row=l2_ops_per_row(dim, ndirs, general=True),
+              tag=tag, main=dim == 9)
+        fig = rows["threshold_step_l2_general"]["shapes"][tag.strip()]
+        fig["geometry"] = l2_general_geometry(dim, ndirs)
+        if fig["bound_by"] == "operations":
+            # the floor of unfused float work: every op its own issue
+            fig["issue_bound_ms"] = (
+                n_rows * l2_ops_per_row(dim, ndirs, general=True)
+                / FP32_ISSUE_PER_S * 1e3)
+            log(f"  {'':15s} unfused issue-rate floor "
+                f"{fig['issue_bound_ms']:.4f} ms (the table's operations "
+                f"bound {fig['bound_ms']:.4f} ms counts an FFMA as two)")
+        log(f"  {'':15s} launch shape {json.dumps(fig['geometry'])}")
         del args, ip, op, x
 
     # majority_step: the event react's (N, 3) planes at pad rows
@@ -568,6 +615,23 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     return rows
 
 
+def phase_l2_cuda_tests() -> str:
+    """The L2 forms' CUDA tests (tests/test_torch_cuda.py: the general
+    kernel's tiling cases among them), in a pytest process of their own on
+    this card; asserts they all pass. Returns pytest's summary line."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         os.path.join(HERE, "tests", "test_torch_cuda.py"), "-k",
+         "threshold_step_l2_kernel"], cwd=HERE, env=env, capture_output=True,
+        text=True, timeout=900)
+    tail = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    assert res.returncode == 0 and "passed" in tail and "skipped" not in \
+        tail, f"the L2 CUDA tests failed:\n{res.stdout[-4000:]}"
+    log(f"  the L2 kernels' CUDA tests on this card: {tail}")
+    return tail
+
+
 # -- phase 1: what the flash kernels were compiled to -------------------------
 
 FLASH_FN = re.compile(r"flash_fwd_(bf16|f32)_kernelILi(\d+)EE")
@@ -610,8 +674,33 @@ def flash_sass_report(out_dir) -> dict:
     for d in (16, 32, 64, 128, 256):
         assert rep[f"bf16 D{d}"]["hgmma"] > 0, f"bf16 D{d}: no HGMMA"
         assert rep[f"f32 D{d}"]["hgmma"] == 0, f"f32 D{d}: HGMMA"
-    if "spill_bytes" in rep.get("bf16 D256", {}):  # a fresh build only
+    if "spill_bytes" in rep.get("bf16 D256", {}):  # ptxas report kept
         assert rep["bf16 D256"]["spill_bytes"] == 0, "bf16 D256 spills"
+    return rep
+
+
+def ptxas_of(source: str, fn: str) -> dict:
+    """Registers, static shared bytes and spill bytes that ptxas reported
+    for the entry function of ``csrc/<source>.cu`` whose name holds `fn`
+    (empty where the build kept no report)."""
+    from repro_torch.kernels import _build
+
+    rep, entry, props = {}, False, ""
+    for line in _build.BUILD_INFO.get("ptxas", {}).get(source,
+                                                       "").splitlines():
+        if "Compiling entry function" in line:
+            entry = fn in line
+        elif "Function properties for" in line:
+            props = line
+        elif fn in props and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            rep["spill_bytes"] = int(st) + int(ld)
+        elif entry and "Used" in line:
+            rep["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rep["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+            entry = False
     return rep
 
 
@@ -1208,21 +1297,104 @@ def phase_big_churn(dev, n: int, events: int, gap: int):
     return eng, stats
 
 
-def device_events(dev, fn):
-    """Run `fn` once under the profiler: (wall seconds, the device-side
-    events by name: kernels, copies, memsets)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_big_l2_any_dim(dev, n: int, dim: int, cycles: int):
+    """L2 at data width `dim` with its default cover (the general kernel)
+    at n peers: the init storm, then `cycles` cycles. Returns the engine
+    and its figures."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import L2Thresh, make_engine
+    from repro_torch.kernels import wheel as W
+    from repro_torch.kernels.wheel import LAUNCHES
 
-    acts = [ProfilerActivity.CPU] + (
+    rng = np.random.default_rng(41)
+    ring = Ring.random(n, 32, seed=41)
+    c = np.zeros(dim)
+    c[:2] = 0.6, -0.8
+    data = rng.normal(1.3 * c, 0.9, (n, dim))
+    prob = L2Thresh(tau=1.0, dim=dim)
+    sync(dev)
+    t0 = time.perf_counter()
+    eng = make_engine("torch", ring, data, seed=42, device=dev,
+                      capacity_per_peer=8, problem=prob)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    k0 = LAUNCHES["threshold_step_l2_general"]
+    t0 = time.perf_counter()
+    eng.step(cycles)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    k = LAUNCHES["threshold_step_l2_general"] - k0
+    # the kernel against its plain version on this engine's own inputs:
+    # every threshold_step call of two more cycles, on clones of its
+    # inputs, the kernel run as the engine runs it
+    real, held = eng._thresh, []
+
+    def check(problem, *args):
+        clones = [a.clone() for a in args]
+        got = real(problem, *args)
+        want = W.threshold_step_reference(problem, *clones)
+        assert max_abs_err(got, want) == 0, (
+            f"the general L2 kernel differs from its plain version on the "
+            f"cycle t={eng.t}")
+        held.append(int(args[0].shape[0]))
+        return got
+
+    eng._thresh = check
+    try:
+        eng.step(2)
+    finally:
+        eng._thresh = real
+    assert held, "no threshold_step call in two cycles"
+    assert eng.dropped == 0, f"messages dropped (L2 D={dim}, n={n})"
+    cons = eng.check_conservation()
+    stats = {"dim": dim, "ndirs": int(prob.U.shape[0]), "init_s": t_init,
+             "cycles_per_s": cycles / dt,
+             "general_launches_per_cycle": k / cycles,
+             "checked_rows": held,
+             "wheel_gb": nbytes(eng._st.wheel) / 1e9, "row_width": eng.roww,
+             "deferral_rate": eng.deferral_rate}
+    log(f"  L2 D={dim} (M={stats['ndirs']}) n={n}: init storm {t_init:.2f} "
+        f"s (pad {eng.pad}, wheel {stats['wheel_gb']:.2f} GB at row width "
+        f"{eng.roww}); {cycles} cycles in {dt:.2f} s = {cycles / dt:.1f} "
+        f"cycles/s; the general L2 kernel {k / cycles:.2f} launches a "
+        f"cycle; equal to its plain version on the {len(held)} calls of "
+        f"2 more cycles ({held} rows); deferral_rate "
+        f"{eng.deferral_rate:.4f}; in flight {cons['live']}; dropped 0, "
+        f"conservation holds")
+    return eng, stats
+
+
+def device_events(dev, fn, warmup=None, cpu: bool = True):
+    """Run `fn` once under the profiler: (wall seconds, the device-side
+    events by name: kernels, copies, memsets). With `warmup`, that runs
+    first, in the profiler's warm-up step (traced, not kept; the step's
+    own annotation, which spans its device work, is left out), and the
+    host waits 20 ms before `fn` and after it: a session drops device
+    events that land near its edges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = ([ProfilerActivity.CPU] if cpu or dev.type != "cuda" else []) + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
+    steps = (None if warmup is None
+             else schedule(wait=0, warmup=1, active=1, repeat=1))
+    with profile(activities=acts, schedule=steps) as prof:
+        if warmup is not None:
+            warmup()
+            sync(dev)
+            prof.step()
+            time.sleep(0.02)
         t0 = time.perf_counter()
         fn()
         sync(dev)
         wall = time.perf_counter() - t0
+        if warmup is not None:
+            time.sleep(0.02)
+            prof.step()
     return wall, [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
 
 
 def profile_churn_event(dev, eng, addr: int) -> dict:
@@ -1240,19 +1412,43 @@ def profile_churn_event(dev, eng, addr: int) -> dict:
             "join_launches": launches}
 
 
-def phase_profile(dev, eng, cycles: int) -> dict:
+def phase_profile(dev, eng, cycles: int, kernel: str = None,
+                  count_as: str = None) -> dict:
     """Device time by kernel over a short window of cycles (device-side
     events only: kernels, copies, memsets). Returns the wall and device
-    ms and the device launches per cycle."""
+    ms and the device launches per cycle, and with `kernel` the device ms
+    a cycle and the share of the device time of the events whose name
+    holds it. A session with fewer device events than the wrappers
+    counted launches in it, or with `kernel`'s events other than the
+    launches counted as `count_as`, is refused and profiled again."""
+    from repro_torch.kernels.wheel import LAUNCHES
+
     eng.step(2)
     sync(dev)
     t0 = time.perf_counter()
     eng.step(cycles)
     sync(dev)
     wall0 = time.perf_counter() - t0
-    wall, ev = device_events(dev, lambda: eng.step(cycles))
-    dev_us = sum(e.self_device_time_total for e in ev)
-    launches = sum(e.count for e in ev)
+    for _ in range(3):  # refuse a session that dropped device events
+        k0 = {}
+        wall, ev = device_events(
+            dev, lambda: (k0.update(LAUNCHES), eng.step(cycles)),
+            warmup=lambda: eng.step(2))
+        counted = {k: v - k0[k] for k, v in LAUNCHES.items()}
+        dev_us = sum(e.self_device_time_total for e in ev)
+        launches = sum(e.count for e in ev)
+        k_n = (sum(e.count for e in ev if kernel in e.key)
+               if kernel is not None else None)
+        if dev.type != "cuda" or (
+                dev_us > 0 and launches >= sum(counted.values())
+                and (kernel is None or k_n == counted[count_as])):
+            break
+        log(f"  profile refused: {launches} device events for "
+            f"{sum(counted.values())} counted launches"
+            + ("" if kernel is None else
+               f"; {k_n} {kernel} events for {counted[count_as]}"))
+    else:
+        raise RuntimeError("three profiles of the cycle dropped events")
     log(f"  profile of {cycles} cycles at n={eng.n}: wall {wall0 * 1e3 / cycles:.2f}"
         f" ms/cycle unprofiled, {wall * 1e3 / cycles:.2f} profiled; device "
         f"busy {dev_us / 1e3 / cycles:.2f} ms/cycle in {launches / cycles:.0f}"
@@ -1261,9 +1457,18 @@ def phase_profile(dev, eng, cycles: int) -> dict:
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / cycles:9.1f} us/cycle "
             f"{e.count / cycles:5.1f}x  {e.key[:90]}")
-    return {"wall_ms_per_cycle": wall0 * 1e3 / cycles,
-            "device_ms_per_cycle": dev_us / 1e3 / cycles,
-            "launches_per_cycle": launches / cycles}
+    out = {"wall_ms_per_cycle": wall0 * 1e3 / cycles,
+           "device_ms_per_cycle": dev_us / 1e3 / cycles,
+           "launches_per_cycle": launches / cycles}
+    if kernel is not None:
+        k_us = sum(e.self_device_time_total for e in ev if kernel in e.key)
+        out.update(kernel_ms_per_cycle=k_us / 1e3 / cycles,
+                   kernel_launches_per_cycle=k_n / cycles,
+                   kernel_share=k_us / dev_us if dev_us else 0.0)
+        log(f"    {kernel}: {k_us / 1e3 / cycles:.4f} ms/cycle in "
+            f"{k_n / cycles:.1f} launches, {100 * out['kernel_share']:.2f}% "
+            f"of the cycle's device time")
+    return out
 
 
 # -- phase 8: the training substrate's kernels vs their plain versions ------
@@ -1721,6 +1926,9 @@ def main() -> int:
     log("  flash_attention_fwd HGMMA instructions per instantiation "
         "(cuobjdump -sass; bf16 on the tensor cores, f32 on the CUDA "
         "cores): " + json.dumps(sass, sort_keys=True))
+    l2_ptxas = ptxas_of("threshold_step", "l2_threshold_general_kernel")
+    log(f"  the general L2 kernel (ptxas; its shared memory is dynamic, "
+        f"sized per shape in phase 2): {json.dumps(l2_ptxas)}")
 
     log("phase 2: kernels vs plain versions at the n = 1e6 shapes")
     # the first profiler sessions of a process can drop device events:
@@ -1735,6 +1943,8 @@ def main() -> int:
         f"{eng_a.lane_budget}, window_l {eng_a.window_l}, WW {sizes['window']}"
         f", narrow NT {dargs[0].shape[0]}, staged rows {sizes['staged']}")
     rows = phase_kernels(dev, sizes, iters=20)
+    rows["threshold_step_l2_general"]["ptxas"] = l2_ptxas
+    rows["threshold_step_l2_general"]["cuda_tests"] = phase_l2_cuda_tests()
     p2_rows = {"descent_tail": int(dargs[0].shape[0]),
                "threshold_step": sizes["window"], "stage_rows": sizes["staged"]}
     del eng_a, sizes, dargs
@@ -1841,6 +2051,20 @@ def main() -> int:
                       for k, v in launch_counts().items()}
     torch.cuda.empty_cache()
 
+    log(f"phase 14: L2 at D = 9 with its default cover (the general L2 "
+        f"kernel) at n = {N_BIG:,}")
+    reset_launches()
+    big, l2_d9 = phase_big_l2_any_dim(dev, N_BIG, 9, 100)
+    paths["l2_any_dim"] = {k: v + paths["l2_any_dim"][k]
+                           for k, v in launch_counts().items()}
+    l2_d9["profile"] = phase_profile(dev, big, 10,
+                                     kernel="l2_threshold_general",
+                                     count_as="threshold_step_l2_general")
+    assert big.dropped == 0
+    big.check_conservation()
+    del big
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -1850,8 +2074,8 @@ def main() -> int:
 
     log("phase 11: kernels on their paths (majority wheel kernels: phases "
         "4-5; mean/L2: phases 6-7; majority without the threshold kernel: "
-        "phase 3; L2 at D = 9 (the general L2 kernel): phase 3; RG-9B "
-        "trainer: phase 9; SmolLM threshold trainer: phase "
+        "phase 3; L2 at D = 9 (the general L2 kernel): phases 3 and 14; "
+        "RG-9B trainer: phase 9; SmolLM threshold trainer: phase "
         "10; armed: phases 12-13, without the threshold kernel: phase 12's "
         f"last schedule): {json.dumps(paths)}")
     table = []
@@ -1862,7 +2086,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9})}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -49,6 +49,16 @@ def _nvcc() -> str:
     return exe
 
 
+def compile_source(name: str, lib: Path, csrc: Path = CSRC,
+                   nvcc: str = None) -> subprocess.Popen:
+    """Start nvcc on ``csrc/<name>.cu`` into the shared library `lib`,
+    with the port's flags; its output (the ptxas report) on stdout."""
+    cmd = [nvcc or _nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
+           str(csrc / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
@@ -63,12 +73,15 @@ def build_dir() -> Path:
 
 def build_all() -> Path:
     """Compile every missing library (one nvcc per source, all at once).
-    Raises RuntimeError with the compiler output if any build fails."""
+    Raises RuntimeError with the compiler output if any build fails. Each
+    library's compiler report (ptxas registers, spills) is kept beside it
+    and read back into BUILD_INFO when the library is reused."""
     out = build_dir()
     todo = [s for s in SOURCES if not (out / f"lib{s}.so").is_file()]
     if not todo:
         BUILD_INFO.setdefault("dir", str(out))
         BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("ptxas", _reports(out))
         return out
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -76,10 +89,7 @@ def build_all() -> Path:
     procs = {}
     for s in todo:
         tmp = out / f"lib{s}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{s}.cu")]
-        procs[s] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[s] = (tmp, compile_source(s, tmp, nvcc=nvcc))
     failed, report = [], {}
     for s, (tmp, p) in procs.items():
         log, _ = p.communicate()
@@ -87,13 +97,20 @@ def build_all() -> Path:
         if p.returncode != 0:
             failed.append(s)
         else:
+            (out / f"lib{s}.ptxas.txt").write_text(log)
             os.replace(tmp, out / f"lib{s}.so")
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(report[s] for s in failed))
     BUILD_INFO.update(dir=str(out), seconds=time.perf_counter() - t0,
-                      ptxas=report)
+                      ptxas=_reports(out))
     return out
+
+
+def _reports(out: Path) -> Dict[str, str]:
+    """The compiler report kept beside each built library in `out`."""
+    return {s: (out / f"lib{s}.ptxas.txt").read_text() for s in SOURCES
+            if (out / f"lib{s}.ptxas.txt").is_file()}
 
 
 def library(name: str) -> ctypes.CDLL:

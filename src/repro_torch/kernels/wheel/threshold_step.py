@@ -12,14 +12,16 @@ problem's `test` inside its body; CUDA has one kernel per problem the
 port ships — majority and mean (linear margins, P = 2) and L2 (the
 tangent-half-space cover, P = D + 1, for any D and any cover size M: the
 cover in shared memory for D <= 8 and M D <= 12,288 floats, else a
-general kernel that streams it in tiles of directions through the
-read-only cache, whose launches count as "threshold_step_l2_general") —
-and the wrapper raises for any other problem. One thread per peer,
-elementwise; majority and mean are bound by bytes, L2 by bytes or, for
-large covers, by its float operations.
+general kernel, whose launches count as "threshold_step_l2_general": a
+block stages its rows coalesced into shared memory as float columns and
+streams the cover through shared memory in chunks of directions) — and
+the wrapper raises for any other problem. One thread per peer; majority
+and mean are bound by bytes, L2 by bytes or, for large covers, by its
+float operations.
 """
 from __future__ import annotations
 
+import ctypes
 import weakref
 
 import torch
@@ -65,6 +67,21 @@ def l2_kernel_name(dim: int, ndirs: int) -> str:
     if dim <= L2_SMEM_MAX_DIM and dim * ndirs <= L2_SMEM_FLOATS:
         return "threshold_step_l2"
     return "threshold_step_l2_general"
+
+
+def l2_general_geometry(dim: int, ndirs: int) -> dict:
+    """The general L2 kernel's launch shape for a (D, M) problem, as the
+    CUDA source picks it: rows per block, rows staged at a time, columns
+    staged at a time (D + 1 unless the columns come in chunks),
+    directions per cover chunk, resident (all columns staged once) and
+    dynamic shared bytes. Builds the kernels' library on first use."""
+    fn = bind("threshold_step", "rt_threshold_step_l2_general_geometry",
+              [I32, I32, P])
+    out = (ctypes.c_int64 * 6)()
+    if fn(dim, ndirs, out) != 0:
+        raise ValueError(f"no L2 kernel geometry for D={dim}, M={ndirs}")
+    return dict(zip(("rows", "group", "cols", "dirs", "resident",
+                     "smem_bytes"), (int(v) for v in out)))
 
 
 def threshold_step(problem, in_pay: torch.Tensor, out_pay: torch.Tensor,

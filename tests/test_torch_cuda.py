@@ -51,7 +51,8 @@ from repro_torch.kernels.wheel import (LAUNCHES, descent_reference,
                                        stage_rows_reference, threshold_step,
                                        threshold_step_reference)
 from repro_torch.kernels.wheel._common import in_segment, stream_of
-from repro_torch.kernels.wheel.threshold_step import l2_kernel_name
+from repro_torch.kernels.wheel.threshold_step import (l2_general_geometry,
+                                                      l2_kernel_name)
 
 WW_1E6 = 262_272          # drain-window rows per cycle at n = 1e6
 NL_1E6 = 3 * 2**21        # per-link plane cells at n = 1e6
@@ -131,21 +132,85 @@ def l2_inputs(rng, n, dim, scale=256):
     return in_pay, out_pay, x
 
 
-@pytest.mark.parametrize("n,dim,ndirs,tau", [
-    (WW_1E6, 2, 16, 1.0), (PAD_1E6, 2, 16, 1.0), (4099, 1, 16, 0.5),
-    (4099, 3, 6, 0.0), (4099, 3, 16, 1.0), (4099, 8, 20, 1.0),
+def _general_cover(prob, variant, geom):
+    """The cover a tiling case of the general kernel runs on (None: the
+    problem's own). geom: the kernel's launch shape for that cover."""
+    u, dim = prob.U, prob.data_width
+    if variant == "one_dir":
+        return u[:1]
+    if variant == "tile_plus_1":       # 8 directions and 1
+        return u[:9]
+    if variant == "chunk_plus_1":      # a cover chunk and 1
+        return u[:geom["dirs"] + 1]
+    if variant == "tie_across_chunks":
+        # +e0 opens the first chunk and +e1 the second, every other
+        # direction below them: rows with K = (a, a, 0, ...) tie the two
+        cm = geom["dirs"]
+        e = np.eye(dim, dtype=np.float32)
+        return np.concatenate([e[:1], np.repeat(-e[:1], cm - 1, 0), e[1:2],
+                               np.repeat(-e[1:2], cm - 1, 0)])
+    if variant == "tie_across_tiles":  # +e1 moved from direction 1 to 8
+        v = u.copy()
+        v[[1, 8]] = v[[8, 1]]
+        return v
+    return None
+
+
+@pytest.mark.parametrize("n,dim,ndirs,tau,variant", [
+    (WW_1E6, 2, 16, 1.0, None), (PAD_1E6, 2, 16, 1.0, None),
+    (4099, 1, 16, 0.5, None), (4099, 3, 6, 0.0, None),
+    (4099, 3, 16, 1.0, None), (4099, 8, 20, 1.0, None),
     # the general kernel: D > 8, and a cover past the 12,288 floats of
     # shared memory (16,384 at D = 16; 16,384 at D = 4 with 4,096 dirs)
-    (PAD_1E6, 9, 18, 1.0), (4099, 9, 18, 0.0), (4099, 16, 1024, 1.0),
-    (4099, 4, 4096, 1.0)])
-def test_threshold_step_l2_kernel_matches_plain(cuda, n, dim, ndirs, tau):
+    (PAD_1E6, 9, 18, 1.0, None), (4099, 9, 18, 0.0, None),
+    (4099, 16, 1024, 1.0, None), (4099, 4, 4096, 1.0, None),
+    # its tiling: n against its block of R rows (1, R - 1, R + 1, prime)
+    (1, 9, 18, 1.0, None), ("R-1", 9, 18, 1.0, None),
+    ("R+1", 16, 1024, 1.0, None), (10_007, 16, 1024, 0.5, None),
+    # one direction; a tile of 8 and one more; a cover chunk and one more
+    (4099, 9, 18, 1.0, "one_dir"), (4099, 9, 18, 1.0, "tile_plus_1"),
+    (4099, 16, 1024, 1.0, "chunk_plus_1"),
+    # first-maximum ties between directions in different cover chunks,
+    # and in different tiles of one chunk
+    (4099, 16, 1024, 1.0, "tie_across_chunks"),
+    (4099, 16, 32, 1.0, "tie_across_tiles"),
+    # rows at the int32 edges: K and A wrap
+    (4099, 9, 18, 1.0, "int32_edges"), (4099, 16, 1024, 1.0, "int32_edges"),
+    # inputs off 16-byte alignment (row views): 4-byte copies and stores
+    (4099, 9, 18, 1.0, "unaligned"),
+    # the smallest row block (R = 32), and columns staged in chunks
+    (997, 150, 300, 1.0, "rows_32"), (301, 300, 600, 1.0, "col_chunks")])
+def test_threshold_step_l2_kernel_matches_plain(cuda, n, dim, ndirs, tau,
+                                                variant):
     prob = L2Thresh(tau=tau, dim=dim, ndirs=ndirs)
+    if dim > 8 or dim * ndirs > 12_288:
+        geom = l2_general_geometry(dim, ndirs)
+        cover = _general_cover(prob, variant, geom)
+        if cover is not None:  # set before the wrapper uploads the cover
+            prob.U = np.ascontiguousarray(cover, np.float32)
+        geom = l2_general_geometry(dim, prob.U.shape[0])
+        if isinstance(n, str):
+            n = geom["rows"] + (1 if n == "R+1" else -1)
+        if variant == "chunk_plus_1":
+            assert prob.U.shape[0] > geom["dirs"]  # two chunks
+        if variant == "rows_32":
+            assert (geom["rows"], geom["resident"]) == (32, 1)
+        if variant == "col_chunks":
+            assert geom["resident"] == 0 and geom["cols"] < dim + 1
     rng = np.random.default_rng(n + dim)
-    args = [torch.from_numpy(a).to(cuda) for a in l2_inputs(rng, n, dim)]
+    skip = 1 if variant == "unaligned" else 0  # rows 1.. of n + 1
+    arrays = l2_inputs(rng, n + skip, dim)
+    if variant == "int32_edges":  # the last eighth of the rows
+        e = n // 8
+        for a in arrays:
+            a[n - e:] = rng.choice(I32_EDGES, (e,) + a.shape[1:])
+    args = [torch.from_numpy(a).to(cuda)[skip:] for a in arrays]
+    if skip:
+        assert all(a.is_contiguous() and a.data_ptr() % 16 for a in args)
     want = threshold_step_reference(prob, *args)
-    form = l2_kernel_name(dim, ndirs)
+    form = l2_kernel_name(dim, prob.U.shape[0])
     assert (form == "threshold_step_l2_general") == (
-        dim > 8 or dim * ndirs > 12_288)
+        dim > 8 or dim * prob.U.shape[0] > 12_288)
     before = LAUNCHES[form]
     got = threshold_step(prob, *args)
     torch.cuda.synchronize()

@@ -6,8 +6,9 @@ versions of `threshold_step` (all three forms) and `majority_step` —
 what the wrappers run for a CPU tensor — are held against the JAX
 package's `protocol.threshold_rules` / `majority_step_reference` AND its
 Pallas kernels in interpret mode, on seeded numpy inputs: int32
-extremes that wrap for the mean problem, D in {1, 2, 3} and forced
-argmax ties for L2. The CUDA kernels are held against these plain
+extremes that wrap for the mean problem, D in {1, 2, 3} and the general
+CUDA kernel's shapes (D = 9, M = 18; D = 16, M = 32 and 1,024) with
+forced argmax ties for L2. The CUDA kernels are held against these plain
 versions on the card by tests/test_torch_cuda.py. Every comparison is
 exact (tolerance 0): integer results, and float32 margins computed in
 the reference's operation order.
@@ -114,7 +115,11 @@ def _l2_inputs(n, dim, seed, scale=256):
     return in_pay, out_pay, x
 
 
-@pytest.mark.parametrize("dim,ndirs", [(1, 16), (2, 16), (3, 16), (3, 6)])
+@pytest.mark.parametrize("dim,ndirs", [
+    (1, 16), (2, 16), (3, 16), (3, 6),
+    # the shapes of the general CUDA kernel: D = 9 with its default cover,
+    # D = 16 with its default cover and with a 16,384-float cover
+    (9, 18), (16, 32), (16, 1024)])
 @pytest.mark.parametrize("tau", [1.0, 0.0])
 def test_l2_threshold_matches_reference(dim, ndirs, tau):
     port = TPB.L2Thresh(tau=tau, dim=dim, ndirs=ndirs)
