@@ -85,15 +85,44 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      exactly against its plain version on clones of its inputs on 2 more
      cycles, then a device-time profile of 10 cycles with the general
      kernel's share;
+ 15. batched trials (`make_engine(..., batch=B)`): kernels-on batched
+     engines against B serial kernels-on engines at n = 4096 (B = 4
+     majority on 4 rings, B = 3 L2 at D = 2 on one ring) through
+     converge, a ragged `set_votes` and a second convergence run with
+     the trials at different t, full state per trial equal; the paper's
+     sweep grid (margins 0.40-0.60 x 4 seeds, drawn as
+     `benchmarks/sweep.py` draws them, B = 24) at n = 100,000 to
+     convergence, every trial on its truth with dropped 0, then a ragged
+     flip and 3 cycles with each trial at its own t; B = 4 majority at
+     n = 1,000,000 on 4 rings (wheel reckoned first), the init storm and
+     100 cycles, profiled. On both the four wheel kernels are held
+     exactly against their plain versions on the batched cycle's own
+     inputs (`CycleKernelCheck`: the sweep's first cycle, each change
+     of the stepping trials, the first per-trial-t cycle; cycles 0, 50
+     and 99 at 1e6), and the `batched` path's launches are read in one
+     window around these two engines. Then the sweep's slowest and
+     fastest trial re-run serially (equal cycles, messages, outputs;
+     one launch of each wheel kernel a cycle on both), the per-margin
+     table, trial-cycles/s, a 10-cycle profile of a twin engine and the
+     peak memory;
+ 16. the serve layer: the differential harness's three serve schedules
+     (drawn here by a copy of its generator, at n = 4096) through a
+     `ThresholdServer` over the kernels-on engine and over the plain
+     one (transitions, outputs after every flush, counters and full
+     state equal; conservation after every flush); majority at
+     n = 100,000, window 8, 4,000 updates in 16 bursts with a join and a
+     leave each, every burst pumped until settled: updates/s, settle
+     latencies in cycles and ms, transitions, dropped 0;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
-     schedule): every kernel the path runs launched at least once, every
-     other kernel never (`due_dedup` never on the armed paths: an armed
-     engine elects with the plain version). Prints one JSON line with
-     every kernel's launches (on its main path, and on each path that
-     runs it), its error, times and bound.
+     schedule, phase 15's batched engines, phase 16): every kernel the
+     path runs launched at least once, every other kernel never
+     (`due_dedup` never on the armed paths: an armed engine elects with
+     the plain version). Prints one JSON line with every kernel's
+     launches (on its main path, and on each path that runs it), its
+     error, times and bound.
 
 Every phase asserts; the last line is the run's JSON verdict. Exits
 non-zero without printing a result when no CUDA device is present or the
@@ -166,6 +195,10 @@ PATH_KERNELS = {
               "threshold_step_mean", "threshold_step_l2"},
     "armed_no_threshold": {"stage_rows", "descent_tail", "majority_step"},
     "train_smollm_threshold": {"flash_attention_fwd", "threshold_gate"},
+    # phase 15's majority sweep and B = 4 at 1e6; phase 16 (all problems)
+    "batched": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
+    "serve": {"stage_rows", "threshold_step", "due_dedup", "descent_tail",
+              "threshold_step_mean", "threshold_step_l2"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -454,8 +487,9 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
         args = (vals.to(dev), torch.from_numpy(rng.random(m) < 0.15).to(dev),
                 (torch.cumsum(mask.long(), 0) - 1).to(dev),
                 torch.from_numpy(
-                    (rng.permutation(10) + 1).astype(np.int32)).to(dev),
-                0xFFFFFFFF - 4, roww - 1)  # the stamp wraps at 32 bits
+                    (rng.permutation(10) + 1).astype(np.int32))[None].to(dev),
+                torch.tensor([-5], dtype=torch.int32, device=dev),
+                roww - 1)  # t = 2^32 - 5: the stamp wraps at 32 bits
         check("stage_rows", W.stage_rows, W.stage_rows_reference, args,
               m, max(1, iters // 4), tag=f" w{roww}", main=roww == 8)
         del vals, args
@@ -939,12 +973,13 @@ def phase_fault_parity(dev, sched: dict, wheel_kernels) -> None:
         f"{a.lost_to_fault})")
 
 
-class ArmedKernelCheck:
-    """Holds an armed engine's `descent_tail`, `threshold_step` and
-    `stage_rows` calls against their plain versions at the sizes the
-    armed cycle gives them (its window is as wide as the due slot's
-    alerts and probes). Installed on an engine, it wraps the three calls
-    the cycle makes, in that order; while `on`, a cycle whose descent
+class CycleKernelCheck:
+    """Holds an engine's wheel-kernel calls against their plain versions
+    at the sizes its cycle gives them: an armed engine's window is as wide
+    as the due slot's alerts and probes, a batched engine's holds every
+    trial's lanes. Installed on a `TorchEngine`, it wraps the calls the
+    cycle makes (`descent_tail`, then `due_dedup` where `keys` names it,
+    `threshold_step`, `stage_rows`); while `on`, a cycle whose descent
     batch has at least `grow` times the rows of the widest checked so far
     is checked: each call's inputs are cloned on the card, the kernel
     runs as the engine runs it (its one counted launch), and the plain
@@ -952,20 +987,33 @@ class ArmedKernelCheck:
     time spent cloning and checking (between syncs) is kept in `seconds`
     so that a rate can leave it out."""
 
-    KEYS = ("_descent", "_thresh", "_stage")
+    NAMES = {"_descent": "descent_tail", "_dedup": "due_dedup",
+             "_thresh": "threshold_step", "_stage": "stage_rows"}
 
-    def __init__(self, eng, dev, grow: float = 1.5):
+    def __init__(self, eng, dev, grow: float = 1.5,
+                 keys=("_descent", "_thresh", "_stage")):
         from repro_torch.kernels import wheel as W
 
-        self.eng, self.dev, self.grow = eng, dev, grow
+        self.eng, self.dev, self.grow, self.keys = eng, dev, grow, keys
         self.on, self.widest, self.widest_seen = False, 0, 0
         self.cur, self.checked, self.seconds = None, [], 0.0
         plain = {"_descent": W.descent_reference,
+                 "_dedup": W.due_dedup_reference,
                  "_thresh": W.threshold_step_reference,
                  "_stage": W.stage_rows_reference}
-        self.real = {k: getattr(eng, k) for k in self.KEYS}
-        for k in self.KEYS:
+        self.real = {k: getattr(eng, k) for k in keys}
+        for k in keys:
             setattr(eng, k, self._wrap(k, self.real[k], plain[k]))
+
+    def remove(self) -> None:
+        for k, fn in self.real.items():
+            setattr(self.eng, k, fn)
+
+    def complete(self) -> bool:
+        """Every checked cycle checked each wrapped call."""
+        want = {self.NAMES[k] for k in self.keys}
+        return bool(self.checked) and all(want <= set(c)
+                                          for c in self.checked)
 
     def restart(self) -> None:
         """Check the next cycle, whatever its width, and grow from it."""
@@ -982,8 +1030,7 @@ class ArmedKernelCheck:
     def _wrap(self, key, kern, plain):
         import torch
 
-        name = {"_descent": "descent_tail", "_thresh": "threshold_step",
-                "_stage": "stage_rows"}[key]
+        name = self.NAMES[key]
 
         def call(*args):
             if key == "_descent":
@@ -992,7 +1039,9 @@ class ArmedKernelCheck:
                 self.cur = None
                 if self.on and rows >= self.grow * self.widest:
                     self.widest = rows
-                    self.cur = {"t": self.eng.t}
+                    tb = self.eng._tb  # each trial's t
+                    self.cur = {"t": (int(tb[0]) if tb.min() == tb.max()
+                                      else f"{tb.min()}..{tb.max()}")}
                     self.checked.append(self.cur)
             if self.cur is None:
                 return kern(*args)
@@ -1025,7 +1074,7 @@ def phase_armed_big(dev, n: int, max_cycles: int, p2_rows: dict) -> tuple:
     """Majority at n peers armed with the harness's drop setting (probe-
     only detector): the init storm, then a run toward the truth of at
     most `max_cycles` cycles (converged or not: the figures say which),
-    then 30 cycles more. In both runs `ArmedKernelCheck` holds the three
+    then 30 cycles more. In both runs `CycleKernelCheck` holds the three
     wheel kernels of the armed cycle against their plain versions on the
     cycles of a growing window (the first of each run, then each 1.5
     times wider than the widest checked); the rate leaves the checks'
@@ -1043,7 +1092,7 @@ def phase_armed_big(dev, n: int, max_cycles: int, p2_rows: dict) -> tuple:
     sync(dev)
     t_init = time.perf_counter() - t0
     truth = int(2 * votes.sum() >= n)
-    chk = ArmedKernelCheck(eng, dev)
+    chk = CycleKernelCheck(eng, dev)
     chk.restart()
     t0 = time.perf_counter()
     res = eng.run_until_converged(truth, max_cycles=max_cycles)
@@ -1055,11 +1104,8 @@ def phase_armed_big(dev, n: int, max_cycles: int, p2_rows: dict) -> tuple:
     chk.restart()
     eng.step(30)
     sync(dev)
-    for k, fn in chk.real.items():
-        setattr(eng, k, fn)
-    assert n_run >= 1 and len(chk.checked) > n_run
-    for c in chk.checked:
-        assert {"descent_tail", "threshold_step", "stage_rows"} <= set(c), c
+    chk.remove()
+    assert n_run >= 1 and len(chk.checked) > n_run and chk.complete()
     log(f"  armed kernels vs plain versions, exact on {len(chk.checked)} "
         f"cycles ({n_run} in the run, the first and each 1.5x wider; the "
         f"rest in 30 cycles after it): rows per call (cycle: descent_tail "
@@ -1889,6 +1935,518 @@ def phase_train_smollm(dev, steps: int = 12, batch: int = 8,
 
 
 
+# -- phase 15: batched trials ------------------------------------------------
+
+SWEEP_MARGINS = (0.40, 0.45, 0.48, 0.52, 0.55, 0.60)
+SWEEP_TRIALS = 4  # seeds per margin
+SWEEP_MAX_CYCLES = 20_000
+WHEEL_KERNELS_MAJ = ("stage_rows", "threshold_step", "due_dedup",
+                     "descent_tail")
+
+
+def grid_votes(n: int, margins, trials: int, seed: int):
+    """(B, n) vote planes for the (margin x seed) grid, B = |margins| *
+    trials, drawn as `benchmarks/sweep.py`'s `_grid_votes` draws them."""
+    import numpy as np
+
+    votes, truths, cells = [], [], []
+    for mi, mu in enumerate(margins):
+        for s in range(trials):
+            rng = np.random.default_rng(seed + 1000 * mi + s)
+            v = np.zeros(n, np.int64)
+            v[rng.choice(n, int(round(n * mu)), replace=False)] = 1
+            votes.append(v)
+            truths.append(int(2 * v.sum() >= n))
+            cells.append((mu, s))
+    return np.stack(votes), np.asarray(truths), cells
+
+
+def assert_trial_equal(bat, b: int, eng, where: str) -> None:
+    import numpy as np
+    from repro_torch.engine.convert import state_to_numpy
+
+    sa, sb = state_to_numpy(bat.state(b)), state_to_numpy(eng._st)
+    for f in sa:
+        assert np.array_equal(sa[f], sb[f]), (
+            f"trial {b}: state field {f} differs {where}")
+
+
+def peak_reset(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gb(dev) -> float:
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def count_cycles(bat) -> dict:
+    """Count the batched engine's cycles and event reacts from now on."""
+    e, c = bat._eng, {"cycles": 0, "reacts": 0}
+    cycle, react = e._cycle, e._react
+
+    def cyc(*a, **k):
+        c["cycles"] += 1
+        cycle(*a, **k)
+
+    def rea(*a, **k):
+        c["reacts"] += 1
+        react(*a, **k)
+
+    e._cycle, e._react = cyc, rea
+    return c
+
+
+def phase_batched_parity(dev, n: int) -> None:
+    """Kernels-on batched engines against B serial kernels-on engines:
+    B = 4 majority on 4 rings, B = 3 L2 (D = 2) on one ring; converge, a
+    ragged `set_votes`, converge again (the trials then at different t);
+    per trial the full state, the results and the outputs equal."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import L2Thresh, make_engine
+
+    rng = np.random.default_rng(31)
+    cases = []
+    votes = np.stack([votes_at(n, mu, rng) for mu in (0.4, 0.45, 0.55, 0.6)])
+    cases.append(("majority", [Ring.random(n, 32, seed=60 + b)
+                               for b in range(4)], votes, None,
+                  np.ones((4, 300), np.int64)))
+    ring = Ring.random(n, 32, seed=64)
+    data = np.stack([problem_data("l2", n, rng, 0) for _ in range(3)])
+    cases.append(("l2", [ring] * 3, data, L2Thresh(tau=1.0, dim=2),
+                  np.stack([problem_data("l2", 300, rng, 1)
+                            for _ in range(3)])))
+    for name, rings, data, prob, flip in cases:
+        B = len(rings)
+        kw = dict(device=dev, capacity_per_peer=8, problem=prob)
+        bat = make_engine("torch", rings, data, seed=70, batch=B, **kw)
+        ser = [make_engine("torch", rings[b], data[b], seed=70 + b, **kw)
+               for b in range(B)]
+        truths = [e.problem.global_output(e.data()) for e in ser]
+        idx = np.full((B, flip.shape[1]), -1)
+        idx[0, :5] = np.arange(5) * 11
+        idx[B - 1] = np.arange(flip.shape[1]) * (n // flip.shape[1])
+        # (trial 1 gets none, and still reacts)
+        for stage in (1, 2):
+            if stage == 2:
+                bat.set_votes(idx, flip)
+                for b, e in enumerate(ser):
+                    keep = idx[b] >= 0
+                    e.set_votes(idx[b][keep], flip[b][keep])
+                truths = [e.problem.global_output(e.data()) for e in ser]
+            t0 = bat.t
+            res = bat.run_until_converged(truths, max_cycles=20_000)
+            for b, e in enumerate(ser):
+                assert e.run_until_converged(truths[b],
+                                             max_cycles=20_000) == res[b], \
+                    f"{name} trial {b} stage {stage}"
+                assert_trial_equal(bat, b, e, f"({name}, stage {stage})")
+            assert all(r["converged"] == 1.0 for r in res)
+            assert (bat.dropped == 0).all()
+            bat.check_conservation()
+            np.testing.assert_array_equal(
+                bat.outputs(), np.stack([e.outputs() for e in ser]))
+            log(f"  {name} B={B} n={n} stage {stage}: cycles "
+                f"{(bat.t - t0).tolist()} (t {bat.t.tolist()}), equal to "
+                f"{B} serial engines in full state, results and outputs")
+
+
+BATCHED_KEYS = ("_descent", "_dedup", "_thresh", "_stage")
+
+
+def check_on_changes(bat, chk) -> None:
+    """Re-arm `chk` whenever the set of stepping trials changes (the first
+    cycle, each freeze, each chunk start), so that the batched cycle's
+    kernels are checked on each form of its window."""
+    e, seen = bat._eng, {"key": b"start"}
+    cycle = e._cycle
+
+    def cyc(active=None):
+        key = None if active is None or active.all() else active.tobytes()
+        if key != seen["key"]:
+            seen["key"] = key
+            chk.restart()
+        cycle(active=active)
+
+    e._cycle = cyc
+
+
+def log_checks(chk, what: str) -> None:
+    log(f"  {what}: the batched engine's kernels vs plain versions, exact on "
+        f"{len(chk.checked)} cycles; rows per call (t: descent_tail [live] / "
+        f"due_dedup / threshold_step / stage_rows) "
+        + "; ".join(f"t={c['t']}: {c['descent_tail']} [{c['descent_live']}] "
+                    f"/ {c['due_dedup']} / {c['threshold_step']} / "
+                    f"{c['stage_rows']}" for c in chk.checked[:4])
+        + ("" if len(chk.checked) <= 4 else
+           f"; ... ({len(chk.checked) - 4} more)")
+        + f"; {chk.seconds:.2f} s of checking left out of the rates")
+
+
+def phase_sweep(dev, n: int):
+    """The paper's sweep grid as one batched engine at n peers, to
+    convergence, its wheel kernels held against their plain versions on
+    the first cycle and whenever a trial freezes or a chunk starts; then
+    a ragged flip and 3 cycles of every trial at its own t (the per-lane
+    slot gather), checked on the first. Returns the figures and what the
+    serial re-runs need."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.wheel import launch_counts
+
+    votes, truths, cells = grid_votes(n, SWEEP_MARGINS, SWEEP_TRIALS, 0)
+    B = votes.shape[0]
+    ring = Ring.random(n, 32, seed=0)
+    peak_reset(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    bat = make_engine("torch", ring, votes, seed=1, batch=B, device=dev,
+                      capacity_per_peer=8)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    wheel_gb = nbytes(bat._eng._st.wheel) / 1e9
+    counts = count_cycles(bat)
+    chk = CycleKernelCheck(bat._eng, dev, keys=BATCHED_KEYS)
+    check_on_changes(bat, chk)
+    k0 = launch_counts()
+    t0 = time.perf_counter()
+    res = bat.run_until_converged(truths, max_cycles=SWEEP_MAX_CYCLES)
+    sync(dev)
+    wall = time.perf_counter() - t0 - chk.seconds
+    k1 = launch_counts()
+    n_cycles = counts["cycles"]
+    per_cycle = {k: (k1[k] - k0[k] - (counts["reacts"]
+                                      if k == "threshold_step" else 0))
+                 / n_cycles for k in WHEEL_KERNELS_MAJ}
+    peak = peak_gb(dev)
+    cyc = np.asarray([r["cycles"] for r in res])
+    assert all(r["converged"] == 1.0 for r in res), "a sweep trial failed"
+    assert (bat.dropped == 0).all(), "messages dropped in the sweep"
+    bat.check_conservation()
+    outs = bat.outputs()
+    assert (outs == truths[:, None]).all(), "a trial off its truth"
+    trial_cycles = int(cyc.sum())
+    n_run = len(chk.checked)
+    # every trial at its own t: a ragged flip (trial b flips b peers)
+    t_sweep = bat.t
+    assert len(set(t_sweep.tolist())) > 1
+    idx = np.full((B, B), -1)
+    for b in range(B):
+        idx[b, :b] = np.arange(b) * (n // B)
+    bat.set_votes(idx, 1 - np.take_along_axis(votes, np.maximum(idx, 0), 1))
+    chk.restart()
+    bat.step(3)
+    sync(dev)
+    chk.remove()
+    assert (bat.t == t_sweep + 3).all() and n_run >= 2 and chk.complete()
+    assert len(chk.checked) > n_run
+    assert (bat.dropped == 0).all()
+    bat.check_conservation()
+    log_checks(chk, f"sweep B={B} n={n} ({n_run} checked cycles in the run, "
+               f"then 1 of 3 cycles at t {t_sweep.min()}..{t_sweep.max()})")
+    rows = []
+    for mi, mu in enumerate(SWEEP_MARGINS):
+        sl = slice(mi * SWEEP_TRIALS, (mi + 1) * SWEEP_TRIALS)
+        rs = res[sl]
+        rows.append({"margin": mu,
+                     "converge_rate": float(np.mean([r["converged"]
+                                                     for r in rs])),
+                     "mean_cycles": float(np.mean([r["cycles"] for r in rs])),
+                     "msgs_per_peer": float(np.mean([r["messages"] / n
+                                                     for r in rs]))})
+        log(f"  margin {mu:.2f}: converge rate {rows[-1]['converge_rate']:.2f}"
+            f", mean cycles {rows[-1]['mean_cycles']:.1f}, messages/peer "
+            f"{rows[-1]['msgs_per_peer']:.3f}")
+    log(f"  B={B} n={n}: init {t_init:.2f} s (wheel {wheel_gb:.2f} GB), "
+        f"{n_cycles} batched cycles in {wall:.2f} s, "
+        f"{trial_cycles} trial-cycles = {trial_cycles / wall:.0f} "
+        f"trial-cycles/s; wheel-kernel launches per batched cycle "
+        f"{json.dumps(per_cycle)}; peak {peak:.2f} GB")
+    del bat
+    stats = {"B": B, "n": n, "init_s": t_init, "wheel_gb": wheel_gb,
+             "batched_cycles": n_cycles, "wall_s": wall,
+             "trial_cycles": trial_cycles,
+             "trial_cycles_per_s": trial_cycles / wall,
+             "launches_per_cycle": per_cycle, "peak_gb": peak,
+             "kernel_checks": len(chk.checked), "check_s": chk.seconds,
+             "margins": rows}
+    ctx = {"ring": ring, "votes": votes, "truths": truths, "cells": cells,
+           "res": res, "outs": outs, "per_cycle": per_cycle}
+    return stats, ctx
+
+
+def sweep_reruns(dev, ctx: dict, reruns: int = 2) -> list:
+    """The sweep's slowest and fastest trial re-run serially on
+    `TorchEngine`: equal cycles, messages and outputs, and the single
+    engine's wheel-kernel launches a cycle equal the batched engine's."""
+    import numpy as np
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels.wheel import launch_counts
+
+    res, per_cycle = ctx["res"], ctx["per_cycle"]
+    cyc = np.asarray([r["cycles"] for r in res])
+    order = [int(np.argmax(cyc)), int(np.argmin(cyc))][:reruns]
+    serial = []
+    for b in order:
+        k0 = launch_counts()
+        e = make_engine("torch", ctx["ring"], ctx["votes"][b], seed=1 + b,
+                        device=dev, capacity_per_peer=8)
+        sync(dev)
+        t0 = time.perf_counter()
+        r = e.run_until_converged(int(ctx["truths"][b]),
+                                  max_cycles=SWEEP_MAX_CYCLES)
+        sync(dev)
+        w = time.perf_counter() - t0
+        k1 = launch_counts()
+        assert r == res[b], f"serial trial {b}: {r} != {res[b]}"
+        assert (e.outputs() == ctx["outs"][b]).all()
+        # the single engine's launches a cycle on the same problem (its
+        # init react is one threshold_step launch)
+        single = {k: (k1[k] - k0[k] - (1 if k == "threshold_step" else 0))
+                  / r["cycles"] for k in WHEEL_KERNELS_MAJ}
+        for k in WHEEL_KERNELS_MAJ:  # (no launches off the card)
+            assert dev.type != "cuda" or per_cycle[k] == single[k] == 1.0, (
+                k, per_cycle, single)
+        cell = ctx["cells"][b]
+        serial.append({"trial": b, "cell": cell, "cycles": r["cycles"],
+                       "wall_s": w, "cycles_per_s": r["cycles"] / w})
+        log(f"  serial trial {b} {cell}: {r['cycles']} cycles in {w:.2f} s"
+            f" ({r['cycles'] / w:.1f} cycles/s), equal to its batched trial "
+            f"in cycles, messages and outputs; launches a cycle "
+            f"{json.dumps(single)}")
+        del e
+    return serial
+
+
+def sweep_profile(dev, n: int, cycles: int) -> dict:
+    """A twin of the sweep's engine a few cycles into its run: device ms
+    and launches per batched cycle."""
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+
+    votes, _, _ = grid_votes(n, SWEEP_MARGINS, SWEEP_TRIALS, 0)
+    bat = make_engine("torch", Ring.random(n, 32, seed=0), votes, seed=1,
+                      batch=votes.shape[0], device=dev, capacity_per_peer=8)
+    bat.step(20)
+    return phase_profile(dev, bat, cycles)
+
+
+def phase_batched_big(dev, n: int, batch: int, cycles: int):
+    """B majority trials at n peers each, on B rings: the init storm and
+    `cycles` cycles, the wheel kernels held against their plain versions
+    on the first cycle, the middle one and the last. Returns the engine
+    and its figures."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+    from repro_torch.engine.torch_backend import SLOTS
+
+    rng = np.random.default_rng(5)
+    votes = np.stack([votes_at(n, 0.45, rng) for _ in range(batch)])
+    rings = [Ring.random(n, 32, seed=5 + b) for b in range(batch)]
+    peak_reset(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    bat = make_engine("torch", rings, votes, seed=6, batch=batch, device=dev,
+                      capacity_per_peer=8)
+    e = bat._eng
+    want = e.lanes * SLOTS * e.lane_width * e.roww * 8 / 1e9
+    log(f"  reckoned wheel {want:.3f} GB a trial ({e.lanes} lanes x {SLOTS} "
+        f"slots x {e.lane_width} rows x {e.roww} x 8 bytes), "
+        f"{batch * want:.2f} GB for B={batch}")
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    maxes = {int(r.addrs[-1]) for r in rings}
+    assert len(maxes) == batch  # every trial its own ring maximum
+    chk = CycleKernelCheck(e, dev, keys=BATCHED_KEYS)
+    t0 = time.perf_counter()
+    half = cycles // 2
+    for check, k in ((True, 1), (False, half - 1), (True, 1),
+                     (False, cycles - half - 2), (True, 1)):
+        if check:
+            chk.restart()
+        bat.step(k)
+    sync(dev)
+    dt = time.perf_counter() - t0 - chk.seconds
+    chk.remove()
+    assert len(chk.checked) == 3 and chk.complete()
+    assert (bat.t == cycles).all()
+    log_checks(chk, f"B={batch} n={n} on {batch} rings")
+    assert (bat.dropped == 0).all(), "messages dropped"
+    bat.check_conservation()
+    wheel = nbytes(e._st.wheel) / 1e9
+    assert abs(wheel - batch * want) < 1e-6
+    peak = peak_gb(dev)
+    log(f"  B={batch} n={n}: init storm {t_init:.2f} s; {cycles} cycles in "
+        f"{dt:.2f} s = {cycles / dt:.1f} batched cycles/s; wheel {wheel:.2f} "
+        f"GB; peak {peak:.2f} GB (the checks' clones included); dropped 0, "
+        f"conservation holds")
+    return bat, {"B": batch, "init_s": t_init, "cycles_per_s": cycles / dt,
+                 "wheel_gb": wheel, "peak_gb": peak,
+                 "kernel_checks": len(chk.checked), "check_s": chk.seconds}
+
+
+# -- phase 16: the serve layer ----------------------------------------------
+
+SERVE_GRID = (("majority", 811), ("mean", 822), ("l2", 833))
+
+
+def serve_schedule(problem_name: str, seed: int, n: int) -> dict:
+    """The differential harness's serve schedule for (problem, seed),
+    drawn the same way (the same generator, in the same order) but at n
+    peers: data, ring seed, and a `gen_workload` trace."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.launch.serve import gen_workload
+
+    rng = np.random.default_rng(seed)
+    rng.integers(48, 97)  # the harness's own n, replaced by `n`
+    if problem_name == "majority":
+        data = rng.integers(0, 2, size=n).astype(np.int64)
+    elif problem_name == "mean":
+        off = float(rng.choice([-0.6, 0.6]))
+        data = rng.normal(off, 0.8, size=n)
+    else:
+        c = rng.normal(size=2)
+        c *= float(rng.choice([0.2, 1.8])) / max(np.linalg.norm(c), 1e-9)
+        data = rng.normal(c, 0.25, size=(n, 2))
+    ring_seed = int(rng.integers(0, 2**31))
+    ring = Ring.random(n, 32, seed=ring_seed)
+    workload = gen_workload(
+        ring, problem_name, windows=int(rng.integers(12, 19)),
+        seed=seed + 3, rate=float(rng.uniform(4.0, 9.0)), p_churn=0.35,
+        window_cycles=int(rng.integers(4, 9)), p_flip_sub=0.25)
+    return {"problem": problem_name, "ring": ring, "eng_seed": seed + 7,
+            "data": data, "workload": workload}
+
+
+def phase_serve_parity(dev, n: int) -> None:
+    """Each serve schedule through a ThresholdServer over the kernels-on
+    engine and over the plain one: the transition stream, the outputs,
+    the counters and the full state equal after every flush, and
+    conservation holds."""
+    import numpy as np
+    from repro_torch.engine import L2Thresh, MeanMonitor, make_engine
+    from repro_torch.launch.serve import ThresholdServer, replay_workload
+
+    probs = {"majority": None, "mean": MeanMonitor(tau=0.0),
+             "l2": L2Thresh(tau=1.0, dim=2)}
+    for name, seed in SERVE_GRID:
+        sched = serve_schedule(name, seed, n)
+        w = sched["workload"]
+        runs = []
+        for wk in ("auto", "none"):
+            eng = make_engine("torch", sched["ring"], sched["data"],
+                              seed=sched["eng_seed"], device=dev,
+                              capacity_per_peer=8, problem=probs[name],
+                              wheel_kernels=wk)
+            server = ThresholdServer(eng, window=w["window_cycles"])
+            trs, snaps = [], []
+            server.subscribe(lambda tr, trs=trs: trs.append(
+                (tr.t, tuple(sorted(tr.peers)), tr.output)))
+
+            def after(_i, eng=eng, snaps=snaps):
+                eng.check_conservation()
+                snaps.append(eng.outputs())
+
+            replay_workload(server, w, after_pump=after)
+            runs.append((eng, trs, snaps, server.stats()))
+        (a, ta, pa, sa), (b, tb, pb, sb) = runs
+        assert ta == tb, f"{name}: transition streams differ"
+        assert sa == sb, f"{name}: counters differ"
+        assert all(np.array_equal(x, y) for x, y in zip(pa, pb))
+        assert_same_state(a, b, f"after the {name} serve schedule")
+        assert sa["dropped"] == 0
+        log(f"  {name} (seed {seed}) n={n}: {len(w['windows'])} windows of "
+            f"{w['window_cycles']} cycles, {sa['submitted']} submits, "
+            f"{sum(len(x['churn']) for x in w['windows'])} churn events: "
+            f"{len(ta)} transitions, outputs after every flush and the full "
+            f"state equal to the plain engine's; conservation holds")
+
+
+def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
+                     window: int = 8, settle_cap: int = 4000) -> dict:
+    """Majority at n peers behind a ThresholdServer: `bursts` volleys of
+    updates (drawn as `benchmarks/serve.py` draws them, submitted at
+    once), a join and a leave before each, every volley pumped until
+    the server settles. Updates a second, settle latencies, transitions,
+    dropped."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import make_engine
+    from repro_torch.launch.serve import (ThresholdServer, _raw_value,
+                                          settle_latencies, workload_params)
+
+    rng = np.random.default_rng(0)
+    params = workload_params("majority", rng)
+    ring = Ring.random(n, 32, seed=0)
+    votes = (rng.random(n) < 0.4).astype(np.int64)
+    eng = make_engine("torch", ring, votes, seed=1, device=dev,
+                      capacity_per_peer=8)
+    server = ThresholdServer(eng, window=window)
+    t0 = time.perf_counter()
+    server.pump()
+    while not server.settled:  # the init storm, off the clock
+        server.pump()
+    t_init = time.perf_counter() - t0
+    server.trace.clear()
+    per = updates // bursts
+    sched = [(rng.integers(0, n, per),
+              [_raw_value("majority", rng, params) for _ in range(per)])
+             for _ in range(bursts)]
+    addrs = [int(a) for a in ring.addrs]
+    occupied = set(addrs)
+    windows0 = server.windows
+    t0 = time.perf_counter()
+    for tgt, vals in sched:
+        while True:
+            a = int(rng.integers(1, 1 << 16))
+            if a not in occupied:
+                break
+        occupied.add(a)
+        server.join(a, _raw_value("majority", rng, params))
+        victim = addrs.pop(int(rng.integers(len(addrs))))
+        server.leave_addr(victim)
+        occupied.discard(victim)
+        live = np.asarray(eng.ring.addrs)
+        for i, v in zip(tgt, vals):
+            server.submit(int(live[i % live.size]), v)
+        server.pump()
+        while not server.settled:
+            server.pump()
+            assert server.windows - windows0 < settle_cap, "never settled"
+    sync(dev)
+    elapsed = time.perf_counter() - t0
+    st, lat = server.stats(), settle_latencies(server.trace)
+    assert st["dropped"] == 0 and eng.dropped == 0, "messages dropped"
+    eng.check_conservation()
+    assert (eng.outputs() == server.truth).all()
+    rec = {"n": n, "init_s": t_init, "updates": st["submitted"],
+           "elapsed_s": elapsed,
+           "updates_per_s": st["submitted"] / elapsed,
+           "windows": server.windows - windows0,
+           "cycles": int(eng.t), "transitions": st["transitions"],
+           "applied": st["applied"], "coalesced": st["coalesced"],
+           "dropped": st["dropped"], **lat}
+    q = lambda unit: "/".join(
+        "-" if lat[f"{unit}_{k}"] is None else f"{lat[f'{unit}_{k}']:.1f}"
+        for k in ("p50", "p95", "max"))
+    log(f"  majority n={n}, window {window}: {rec['updates']} updates in "
+        f"{bursts} bursts with a join and a leave each, {elapsed:.2f} s = "
+        f"{rec['updates_per_s']:.0f} updates/s over {rec['windows']} windows;"
+        f" settle latency p50/p95/max {q('cycles')} cycles, {q('ms')} ms "
+        f"({lat['decisions']} settles); {st['transitions']} transitions; "
+        f"dropped 0")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2065,6 +2623,34 @@ def main() -> int:
     del big
     torch.cuda.empty_cache()
 
+    log(f"phase 15: batched trials: kernels-on B-trial engines vs serial "
+        f"engines at n = 4096; the sweep grid (B = 24) at n = {N_MID:,}; "
+        f"B = 4 at n = {N_BIG:,}")
+    phase_batched_parity(dev, 4096)
+    torch.cuda.empty_cache()
+    # the batched path's one window: the sweep's engine (built, run to
+    # convergence, 3 cycles at per-trial t) and B = 4 at 1e6
+    reset_launches()
+    sweep, sweep_ctx = phase_sweep(dev, N_MID)
+    torch.cuda.empty_cache()
+    big, sweep["b4_1e6"] = phase_batched_big(dev, N_BIG, 4, 100)
+    paths["batched"] = launch_counts()
+    sweep["b4_1e6"]["profile"] = phase_profile(dev, big, 10)
+    del big
+    torch.cuda.empty_cache()
+    sweep["serial"] = sweep_reruns(dev, sweep_ctx)
+    del sweep_ctx
+    sweep["profile"] = sweep_profile(dev, N_MID, 10)
+    torch.cuda.empty_cache()
+
+    log(f"phase 16: the serve layer: kernels-on vs plain on the three serve "
+        f"schedules at n = 4096; majority at n = {N_MID:,} under 16 bursts")
+    reset_launches()
+    phase_serve_parity(dev, 4096)
+    serve = phase_serve_load(dev, N_MID)
+    paths["serve"] = launch_counts()
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -2077,7 +2663,9 @@ def main() -> int:
         "phase 3; L2 at D = 9 (the general L2 kernel): phases 3 and 14; "
         "RG-9B trainer: phase 9; SmolLM threshold trainer: phase "
         "10; armed: phases 12-13, without the threshold kernel: phase 12's "
-        f"last schedule): {json.dumps(paths)}")
+        "last schedule; batched: phase 15's sweep and B = 4 at 1e6 (one "
+        "launch of each wheel kernel a batched cycle, as the single "
+        "engine's); serve: phase 16): " + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
         table.append({"name": name, "route": "cuda", "source": src,
@@ -2086,7 +2674,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': serve})}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -10,12 +10,16 @@ problems; Alg. 2 churn; the fault plane).
                         faults=FaultConfig(suspect_after=25, evict_after=150))
     armed.crash(3); armed.step(200)          # detected and evicted
     oracle = make_engine("numpy", ring, votes, seed=0)  # host numpy
+    sweep = make_engine("torch", rings, votes_Bn, seed=0, batch=B)
+    results = sweep.run_until_converged(truths)   # B EngineResults
 
 `make_engine("torch", ...)` builds a `TorchEngine` (engine.torch_backend)
 on CUDA unless ``device`` names another device; it raises when CUDA is
 absent rather than falling back to the CPU. `make_engine("numpy", ...)`
 builds the host oracle `NumpyEngine` (engine.numpy_backend), which has no
-device.
+device. ``batch=B`` builds B independent trials (engine.batched): one
+engine on the device whose wheel kernels launch once a cycle for all B,
+or B host oracles.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ BACKENDS = ("torch", "numpy")
 
 
 def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
-                **kwargs):
+                batch: int = 0, **kwargs):
     """Construct the port's engine over `ring` with per-peer `votes`.
 
     `backend` is ``"torch"`` or ``"numpy"``. For torch, ``device=None``
@@ -43,10 +47,27 @@ def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
     `kernels.wheel.WHEEL_KERNELS`) and ``faults`` (a `FaultConfig` arms
     the fault plane). The numpy engine takes ``problem`` and ``faults``;
     ``device`` means nothing to it.
+
+    With ``batch=B`` (B > 0), `votes` is (B, n) (or (B, n, D)), `ring` a
+    single Ring or a list of B rings of equal (n, d), `seed` a scalar
+    (per-trial seeds are seed + i) or a (B,) array, and the result runs B
+    independent trials (`engine.batched`); ``faults=`` does not compose
+    with it, as in the reference.
     """
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown engine backend {backend!r}; want one of {BACKENDS}")
+    if batch:
+        if kwargs.get("faults") is not None:
+            raise NotImplementedError(
+                "batch= and faults= do not compose (the failure detector's "
+                "eviction sweep is a host event path per trial)")
+        from . import batched
+
+        if backend == "numpy":
+            return batched.BatchedNumpyEngine(ring, votes, seed=seed, **kwargs)
+        return batched.BatchedTorchEngine(ring, votes, seed=seed,
+                                          device=device, **kwargs)
     if backend == "numpy":
         from .numpy_backend import NumpyEngine
 
@@ -67,10 +88,15 @@ def __getattr__(name):
         from .numpy_backend import NumpyEngine
 
         return NumpyEngine
+    if name in ("BatchedTorchEngine", "BatchedNumpyEngine"):
+        from . import batched
+
+        return getattr(batched, name)
     raise AttributeError(name)
 
 
-__all__ = ["BACKENDS", "DeviceState", "EngineResult", "FaultConfig",
+__all__ = ["BACKENDS", "BatchedNumpyEngine", "BatchedTorchEngine",
+           "DeviceState", "EngineResult", "FaultConfig",
            "L2Thresh", "MAJORITY", "Majority", "MajorityEngine",
            "MeanMonitor", "NumpyEngine", "PROBLEMS", "ThresholdProblem",
            "TorchEngine", "coalesced_update", "get_problem", "make_engine"]

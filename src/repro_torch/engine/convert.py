@@ -10,15 +10,23 @@ every 32-bit field still holds a 32-bit value. Shapes pass through as
 they are: the row width of `wheel` / `awheel` (P + 6: 8 for majority and
 mean, 9 for L2 with D = 2) and the payload widths of `inbox` / `out` are
 the problem's, and `TorchEngine._adopt` checks them against its sizing.
+
+A batched engine's state (B trials on one trial axis, see
+`torch_backend.stack_trials`) converts per trial: `trials_to_numpy`
+gives B dicts in the reference's single-trial layout — what
+``{k: np.asarray(v[b]) for k, v in batched_jax._st._asdict().items()}``
+gives for the reference's vmapped state — and `trials_from_numpy` stacks
+B such dicts back.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.engine.torch_backend import M32, U32_FIELDS, DeviceState
+from repro_torch.engine.torch_backend import (M32, U32_FIELDS, DeviceState,
+                                             stack_trials, trial_state)
 
 _DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
 
@@ -56,3 +64,16 @@ def state_to_numpy(state: DeviceState) -> Dict[str, np.ndarray]:
             a = a.astype(np.uint32)
         out[k] = a
     return out
+
+
+def trials_to_numpy(state: DeviceState, batch: int) -> List[Dict[str, np.ndarray]]:
+    """Host copies of each trial of a `batch`-trial state, each in the
+    reference's single-trial layout and dtypes."""
+    return [state_to_numpy(trial_state(state, b, batch)) for b in range(batch)]
+
+
+def trials_from_numpy(arrays: Sequence[Dict[str, np.ndarray]],
+                      device="cpu") -> DeviceState:
+    """A B-trial `DeviceState` from B single-trial dicts (reference
+    layout and dtypes), in trial order."""
+    return stack_trials([state_from_numpy(a, device) for a in arrays])

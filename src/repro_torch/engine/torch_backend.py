@@ -58,6 +58,24 @@ host and synthesizes the Alg. 2 leave of the peer the tree neighbours
 convict (`core.majority.elect_eviction`). Armed, the accept election runs
 its plain version with the probe plane (``due_dedup_reference(...,
 acc_p=)``), as the reference turns its fused dedup kernel off.
+
+A trial axis (``_trials=``, built by `engine.batched.BatchedTorchEngine`)
+runs B independent trials of equal (n, d) as one engine, the counterpart
+of the reference's vmapped `BatchedJaxEngine`: the trials are folded into
+the axes the cycle already has — peer planes (B pad, ...), link planes
+(B pad 3, ...), wheels (B L, SLOTS, ...) with a trial's lanes its own
+rows — so each wheel kernel launches once a cycle for all B. Owner
+lookups search each trial's own address table (`_owner_of`), the R2
+repair reads each trial's own ring maximum, and each trial keeps its own
+cycle time, salt and delay permutations (`stack_trials` gives the
+layout). `_cycle(active=)` freezes the trials that are not active: their
+window is empty and nothing of theirs is written, as the reference's
+``lax.cond(done, identity, _cycle_impl)`` leaves a converged trial's
+state untouched. Trials are then at different t, hence due slots: the
+cycle reads each lane's own slot (a gather) unless the active trials
+share one. No churn or fault plane on a trial axis, as the reference;
+there the single-trial entry points (`step`, `set_votes`, `join`, ...)
+raise.
 """
 from __future__ import annotations
 
@@ -165,7 +183,9 @@ class DeviceState(NamedTuple):
     """Complete simulation state, field for field the reference's
     `jax_backend.DeviceState` (uint32 fields are int64 here). Peer rows
     are padded to `pad`; the wheel arenas and wheel counters carry a
-    leading owner-lane axis."""
+    leading owner-lane axis. With B trials (`stack_trials`) the peer,
+    link and lane axes hold the trials one after another, and the
+    scalars and `perms` gain a leading (B,) axis."""
 
     x: torch.Tensor        # (pad, D)      int32 own data (majority: votes)
     inbox: torch.Tensor    # (pad*3, P+1)  int32 per-link [X_in payload, seq]
@@ -193,6 +213,33 @@ class DeviceState(NamedTuple):
     lost: torch.Tensor     # (L,) int32     rows destroyed by injected faults
 
 
+# fields stacked on a new leading trial axis; every other field is
+# concatenated along its first (peer, link or lane) axis
+TRIAL_STACKED = frozenset({"n_live", "perms", "salt_enq", "evt_ctr", "t"})
+
+
+def stack_trials(states) -> DeviceState:
+    """One B-trial state from B single-trial states of equal sizing (a
+    None arena stays None)."""
+    out = {}
+    for k in DeviceState._fields:
+        vs = [getattr(st, k) for st in states]
+        if vs[0] is None:
+            out[k] = None
+        elif k in TRIAL_STACKED:
+            out[k] = torch.stack(vs)
+        else:
+            out[k] = torch.cat(vs)
+    return DeviceState(**out)
+
+
+def trial_state(st: DeviceState, b: int, batch: int) -> DeviceState:
+    """Trial `b`'s single-trial state (views) of a `batch`-trial state."""
+    return DeviceState(**{
+        k: (v[b] if k in TRIAL_STACKED else v.chunk(batch)[b])
+        for k, v in st._asdict().items()})
+
+
 class PeerPlane:
     """Access layer for the O(n) per-peer planes (`x`, `inbox`, `out`)
     and the owner-lane boundary of the wheel — the single-device form
@@ -216,7 +263,10 @@ class PeerPlane:
     put_link = put_peer
 
     def occ(self) -> torch.Tensor:
-        return torch.arange(self.eng.pad, device=self.eng.device) < self.eng.n
+        e = self.eng
+        if e.batch == 1:
+            return torch.arange(e.pad, device=e.device) < e.n
+        return torch.arange(e.rows, device=e.device) % e.pad < e.n
 
     def exchange(self, arr: torch.Tensor) -> torch.Tensor:
         """Lane boundary exchange (identity on one device)."""
@@ -233,12 +283,16 @@ class TorchEngine:
                  capacity_per_peer: int = 6, work_budget: int = 0,
                  pad_to: int = 0, problem=None,
                  wheel_kernels="auto", faults=None, device="cuda",
-                 _state: Optional[DeviceState] = None):
+                 _state: Optional[DeviceState] = None, _trials=None):
         if ring.d > 32:
             raise ValueError(
                 f"torch engine needs d <= 32 (32-bit addresses), got d={ring.d}")
         self.problem = get_problem(problem)
         self.device = resolve_device(device)
+        # the trial axis: _trials lists B (ring, votes, seed) of equal (n, d)
+        self.batch = 1 if _trials is None else len(_trials)
+        if _trials is not None and faults is not None:
+            raise NotImplementedError("no fault plane on a trial axis")
         if wheel_kernels in ("auto", None):
             wk = WHEEL_KERNELS
         elif wheel_kernels == "none":
@@ -297,9 +351,13 @@ class TorchEngine:
         if _state is not None:
             self._adopt(_state)
             return
-        if votes.shape[0] != ring.n:
-            raise ValueError(f"{votes.shape[0]} votes for {ring.n} peers")
-        self._adopt(self._initial_state(ring, votes, seed))
+        if _trials is None:
+            _trials = [(ring, votes, seed)]
+        for r, v, _ in _trials:
+            if v.shape[0] != r.n:
+                raise ValueError(f"{v.shape[0]} votes for {r.n} peers")
+        self._adopt(stack_trials([self._initial_state(*a) for a in _trials])
+                    if self.batch > 1 else self._initial_state(*_trials[0]))
         self._react(self._plane.occ())
 
     @classmethod
@@ -320,6 +378,10 @@ class TorchEngine:
         `_size_tables` formulas verbatim."""
         self.lanes = min(MAX_LANES, self.pad & -self.pad)
         self.lane_rows = self.pad // self.lanes
+        # with a trial axis: B pad peer rows and B L lanes in all
+        self.rows = self.batch * self.pad
+        self.nlanes = self.batch * self.lanes
+        self._lane_ar = torch.arange(self.nlanes, device=self.device)
         L = self.lanes
         b_req = self._wb_req or max(512, self.pad // 8)
         self.lane_budget = max(1, b_req // L)
@@ -374,18 +436,18 @@ class TorchEngine:
         into storage with one sentinel row past each scattered plane (a
         None arena is allocated there empty), and mirror the host-side
         scalars."""
-        dev = self.device
-        want = {"x": (self.pad, self.dw), "inbox": (self.pad * NDIR, self.pw + 1),
-                "out": (self.pad, NDIR * self.pw + 1),
-                "wheel": (self.lanes, SLOTS, self.lane_width, self.roww),
-                "awheel": (self.lanes, SLOTS, self.lane_alert_w, self.roww)}
+        dev, rows, nl = self.device, self.rows, self.nlanes
+        want = {"x": (rows, self.dw), "inbox": (rows * NDIR, self.pw + 1),
+                "out": (rows, NDIR * self.pw + 1),
+                "wheel": (nl, SLOTS, self.lane_width, self.roww),
+                "awheel": (nl, SLOTS, self.lane_alert_w, self.roww)}
         for k, shape in want.items():
             if getattr(st, k) is None and k in ("wheel", "awheel"):
                 continue
             if tuple(getattr(st, k).shape) != shape:
                 raise ValueError(f"state {k} has shape {tuple(getattr(st, k).shape)}"
                                  f", this sizing wants {shape}")
-        if int(st.n_live) != self.n:
+        if bool((st.n_live != self.n).any()):
             raise ValueError("state n_live differs from the ring size")
         self._store = {}
         fields = {}
@@ -409,17 +471,35 @@ class TorchEngine:
                 v = v.clone()
             fields[k] = v
         self._st = DeviceState(**fields)
-        self._t = int(st.t)
-        self._evt = int(st.evt_ctr)
-        self._salt = int(st.salt_enq)
+        # host mirrors: each trial's t; the event counter (equal in every
+        # trial: events reach them all); the salt (of trial 0, read only
+        # on one trial)
+        self._tb = st.t.reshape(-1).cpu().numpy().astype(np.int64)
+        self._evt = int(st.evt_ctr.reshape(-1)[0])
+        self._salt = int(st.salt_enq.reshape(-1)[0])
+        self._frozen = (None, None)  # (active mask bytes, its lane tensors)
+
+    @property
+    def _t(self) -> int:
+        """The cycle counter (one trial; trial 0's on a trial axis)."""
+        return int(self._tb[0])
 
     # -- shared helpers ------------------------------------------------------
 
     def _owner_of(self, q: torch.Tensor) -> torch.Tensor:
         """Peer row owning each address (successor with wrap): one binary
-        search over the padded sorted-prefix table."""
-        return torch.searchsorted(self._st.addrs, q.contiguous(),
-                                  side="left") % self.n
+        search over the padded sorted-prefix table. On a trial axis `q` is
+        B equal trial-major blocks, each searched in its own trial's table
+        (one 2-D search), and the rows are global (b pad + local)."""
+        if self.batch == 1:
+            return torch.searchsorted(self._st.addrs, q.contiguous(),
+                                      side="left") % self.n
+        B, pd = self.batch, self.pad
+        loc = torch.searchsorted(self._st.addrs.view(B, pd),
+                                 q.reshape(B, -1).contiguous(),
+                                 side="left") % self.n
+        base = torch.arange(0, B * pd, pd, device=q.device)[:, None]
+        return (loc + base).reshape(q.shape)
 
     def _lane_of(self, dest: torch.Tensor) -> torch.Tensor:
         return self._owner_of(dest) // self.lane_rows
@@ -456,7 +536,7 @@ class TorchEngine:
         cnt[lane, slot] + stable rank within the (lane, slot) group;
         overflow past `cap` drops. Updates `cnt` in place and returns
         (attempted (L,), dropped (L,)) int32."""
-        L = self.lanes
+        L = cnt.shape[0]
         width = self.lane_width if name == "wheel" else self.lane_alert_w
         rank, counts = self._group_ranks(lane * SLOTS + slot, live, L * SLOTS)
         lsafe = torch.where(live, lane, 0)
@@ -492,7 +572,7 @@ class TorchEngine:
         `majority_step` planes for a majority engine without the
         threshold kernel, `_rules` otherwise. Returns (viol (pd,3),
         pay (pd,3,P))."""
-        st, pd, pw = self._st, self.pad, self.pw
+        st, pd, pw = self._st, self.rows, self.pw
         if self._majority_react:
             plane = lambda a: a.reshape(pd, NDIR).contiguous()
             viol, _, po, pt = self._majority(
@@ -504,14 +584,17 @@ class TorchEngine:
         viol, _, pay = self._rules(in_pay, self._out_pay(st.out), st.x)
         return viol, pay
 
-    def _outputs_match(self, truth: int) -> torch.Tensor:
-        """The threshold convergence predicate, on device (0-d bool)."""
-        st = self._st
-        out = knowledge_outputs(self.problem, st.inbox, st.x, self.pad).to(I32)
+    def _outputs_match(self, truth) -> torch.Tensor:
+        """The threshold convergence predicate per trial, on device ((B,)
+        bool); `truth` an int, or a (B,) tensor of each trial's."""
+        st, B = self._st, self.batch
+        out = knowledge_outputs(self.problem, st.inbox, st.x, self.rows).to(I32)
+        if isinstance(truth, torch.Tensor):
+            truth = truth.repeat_interleave(self.pad)
         ok = self.problem.converged(torch, out, truth) | ~self._plane.occ()
         if self._faults is not None:
             ok = ok | st.dead  # crashed, unevicted peers have no say
-        return ok.all()
+        return ok.view(B, self.pad).all(1)
 
     # -- event path (full-width react, ranked append, hashed delays) --------
 
@@ -519,14 +602,21 @@ class TorchEngine:
                         alert: bool = False):
         """Append the `cand` rows of an event to the wheel of each DEST
         owner's lane, due after a per-row hashed delay; ALERT rows go to
-        the side-wheel, due immediately."""
-        st = self._st
+        the side-wheel, due immediately. On a trial axis the rows are B
+        equal trial-major blocks, each hashed by its own index within the
+        block, its trial's t and salt."""
+        st, B = self._st, self.batch
         m = cand.shape[0]
         if alert:
             due = torch.full((m,), self._t, dtype=I32, device=self.device)
-        else:
+        elif B == 1:
             rix = torch.arange(m, device=self.device)
             due = self._t + hash_delay(rix, self._t + self._evt, self._salt)
+        else:
+            rix = torch.arange(m // B, device=self.device)[None, :]
+            t = st.t.long()[:, None]
+            due = (t + hash_delay(rix, t + self._evt,
+                                  st.salt_enq[:, None])).reshape(-1)
         rows = torch.stack(
             [_u32(origin), _u32(dest), _u32(edge), _u32(has_edge)]
             + [_u32(pay[:, c]) for c in range(self.pw)]
@@ -543,7 +633,7 @@ class TorchEngine:
     def _react(self, touched: torch.Tensor) -> None:
         """Threshold test() + Send(v) for all `touched` peers (full-width
         event path: initialization and data changes)."""
-        st, pd, pw = self._st, self.pad, self.pw
+        st, pd, pw = self._st, self.rows, self.pw
         if self._faults is not None:
             touched = touched & ~st.dead  # the dead never send
         viol, pay = self._test_phase()
@@ -824,23 +914,64 @@ class TorchEngine:
 
     # -- the cycle -----------------------------------------------------------
 
-    def _cycle(self) -> None:
+    def _lanes_of(self, active: np.ndarray):
+        """(lane mask (B L,) bool, trial increments (B,) int32) on the
+        device for the host mask `active`, kept while it stays the same."""
+        key = active.tobytes()
+        if self._frozen[0] != key:
+            a = torch.from_numpy(active).to(self.device)
+            self._frozen = (key, (a.repeat_interleave(self.lanes),
+                                  a.to(I32)))
+        return self._frozen[1]
+
+    def _cycle_perm(self) -> torch.Tensor:
+        """Each trial's delay permutation for this cycle, (B, 10): row
+        ``(t + 1) * 0x9E3779B1 + salt`` >> 28 of its `perms`."""
+        st = self._st
+        if self.batch == 1:
+            h = (((self._t + 1) & M32) * 0x9E3779B1 + self._salt) & M32
+            return st.perms[h >> 28][None]
+        h = (_mul32((st.t.long() + 1) & M32, 0x9E3779B1) + st.salt_enq) & M32
+        return st.perms[torch.arange(self.batch, device=self.device), h >> 28]
+
+    def _cycle(self, active: Optional[np.ndarray] = None) -> None:
         """One simulation cycle, in place: drain each lane's due bucket,
         route, accept, react; stage every re-entering or new row with its
         lane-relative delay ordinal; append to the owner lanes. Disarmed,
         no host sync; armed, one host read of the due slot's largest lane
-        count of alerts, which sizes the window."""
+        count of alerts, which sizes the window.
+
+        On a trial axis, `active` ((B,) bool on the host, None: all)
+        selects the trials that step; the others are frozen bit for bit."""
         st, pl, dev, f = self._st, self._plane, self.device, self._faults
-        pd, d, L, pw = self.pad, self.d, self.lanes, self.pw
+        pd, d, L, pw = self.rows, self.d, self.nlanes, self.pw
         Bl, Al = self.lane_budget, self.lane_alert_w
         Wl, cap, roww = self.lane_width, self.lane_cap, self.roww
-        t = self._t
-        s, s1 = t % SLOTS, (t + 1) % SLOTS
-        # the due slot's rows; every read of `sbuf` (a view) happens
-        # before the slot is rewritten below
-        sbuf = st.wheel[:, s]
-        n_alert = st.acnt[:, s].clone()
-        dcnt = st.wcnt[:, s].clone()
+        B, lane_ar = self.batch, self._lane_ar
+        if active is not None and active.all():
+            active = None
+        act_l = None if active is None else self._lanes_of(active)[0]
+        t_on = self._tb if active is None else self._tb[active]
+        if (t_on == t_on[0]).all():
+            # the stepping trials share t (a frozen trial's lanes read the
+            # same slot, masked, and write back what they read)
+            t = int(t_on[0])
+            s, s1 = t % SLOTS, (t + 1) % SLOTS
+            at = lambda slot: (slice(None), slot)
+        else:
+            # per-trial t: each lane reads and writes its own trial's slot
+            t = st.t.long()[:, None].expand(B, self.lanes).reshape(L, 1)
+            s, s1 = t[:, 0] % SLOTS, (t[:, 0] + 1) % SLOTS
+            at = lambda slot: (lane_ar, slot)
+        # the due slot's rows (a view, or each lane's own slot gathered);
+        # every read of `sbuf` happens before the slot is rewritten below
+        sbuf = st.wheel[at(s)]
+        acnt_s = st.acnt[at(s)].clone()
+        wcnt_s = st.wcnt[at(s)].clone()
+        n_alert, dcnt = acnt_s, wcnt_s
+        if act_l is not None:  # a frozen trial's window is empty
+            n_alert = torch.where(act_l, acnt_s, 0)
+            dcnt = torch.where(act_l, wcnt_s, 0)
         n_data = torch.clamp(dcnt, max=Bl)
 
         # lane-major window: per lane [Aw alert rows, B_l data rows]. An
@@ -853,8 +984,8 @@ class TorchEngine:
         Aw = Al if f is None else int(n_alert.max())
         WWl = Aw + Bl
         WW = L * WWl
-        w = torch.cat([st.awheel[:, s, :Aw], sbuf[:, :Bl]], dim=1).reshape(
-            WW, roww)
+        w = torch.cat([st.awheel[at(s) + (slice(None, Aw),)], sbuf[:, :Bl]],
+                      dim=1).reshape(WW, roww)
         li = torch.arange(WWl, device=dev)
         is_alert_l = li < Aw
         live = torch.where(is_alert_l[None, :], li[None, :] < n_alert[:, None],
@@ -875,7 +1006,10 @@ class TorchEngine:
         owner = self._owner_of(w_dest)
         pos_i, a_prev, a_self = st.pos[owner], st.prev[owner], st.addrs[owner]
         self_seg = in_segment(w_origin, a_prev, a_self)
-        max_addr = st.addrs[self.n - 1:self.n]
+        # the R2 repair's ring maximum, one per trial (and per window row)
+        max_addr = st.addrs.view(B, self.pad)[:, self.n - 1].contiguous()
+        max_row = (max_addr if B == 1 else
+                   max_addr[:, None].expand(B, WW // B).reshape(WW))
 
         # ---- the injected faults at the due-scan: rows whose owner has
         # crashed are lost (any kind); live data rows are dropped or
@@ -908,7 +1042,7 @@ class TorchEngine:
             dlv = P.deliver_rules(
                 origin=w_origin, dest=cur_d, edge=cur_e, has_edge=cur_h,
                 network_entry=entry, pos_i=pos_i, a_prev=a_prev,
-                a_self=a_self, self_seg=self_seg, max_addr=max_addr, d=d)
+                a_self=a_self, self_seg=self_seg, max_addr=max_row, d=d)
             moving = lv & ~dlv.accept & ~dlv.drop
             stay = moving & in_segment(dlv.new_dest, a_prev, a_self)
             fwdn = moving & ~stay
@@ -1022,8 +1156,9 @@ class TorchEngine:
 
         # ---- wheel maintenance: slip one cycle, shift leftovers to the
         # front (revisited a revolution later), count each backlog row
-        # once (LATE bit)
-        wcnt_s1 = st.wcnt[:, s1].clone()
+        # once (LATE bit). A frozen lane's slot and counts are written
+        # back as they were, and its slip rows go to the sentinel row
+        wcnt_s1 = st.wcnt[at(s1)].clone()
         slip_avail = torch.clamp(dcnt - Bl, 0, Bl)
         slip_k = torch.minimum(slip_avail, cap - wcnt_s1)
         leftover = torch.clamp(dcnt - Bl - slip_k, 0, Wl - 2 * Bl)
@@ -1038,12 +1173,26 @@ class TorchEngine:
         slip_rows = sbuf[:, Bl:2 * Bl].clone()
         slip_rows[:, :, self._DT] = (t + 1) & M32
         slip_rows[:, :, HAS_EDGE] |= LATE
-        st.wheel[:, s, :Wl - 2 * Bl] = shifted   # sbuf is stale from here
-        st.wcnt[:, s] = leftover
-        st.acnt[:, s] = 0
         si = wcnt_s1.long()[:, None] + torch.arange(Bl, device=dev)
-        st.wheel[:, s1].scatter_(1, si[:, :, None].expand(L, Bl, roww), slip_rows)
-        st.wcnt[:, s1] = wcnt_s1 + slip_k
+        if act_l is not None:
+            shifted = torch.where(act_l[:, None, None], shifted,
+                                  sbuf[:, :Wl - 2 * Bl])
+            leftover = torch.where(act_l, leftover, wcnt_s)
+        st.wheel[at(s) + (slice(None, Wl - 2 * Bl),)] = shifted  # sbuf stale
+        st.wcnt[at(s)] = leftover
+        st.acnt[at(s)] = 0 if act_l is None else torch.where(act_l, 0, acnt_s)
+        if act_l is None and isinstance(s1, int):
+            st.wheel[:, s1].scatter_(1, si[:, :, None].expand(L, Bl, roww),
+                                     slip_rows)
+        else:
+            # rows of the wheel's storage in each lane's own slot; a
+            # frozen lane's go to the sentinel row past the wheel
+            si = si + ((lane_ar * SLOTS + s1) * Wl)[:, None]
+            if act_l is not None:
+                si = torch.where(act_l[:, None], si, L * SLOTS * Wl)
+            self._store["wheel"].index_put_((si.reshape(-1),),
+                                            slip_rows.reshape(-1, roww))
+        st.wcnt[at(s1)] = wcnt_s1 + slip_k
 
         # ---- staging: one rigid per-lane block [WWl re-entry rows |
         # 3*WWl send rows]; the delay ordinal is the row's rank within its
@@ -1080,10 +1229,9 @@ class TorchEngine:
              torch.zeros((L, NDIR * WWl), dtype=torch.bool, device=dev)],
             dim=1)
         ordinal = torch.cumsum(blk_mask.to(I32), dim=1, dtype=I64) - 1
-        h = (((t + 1) & M32) * 0x9E3779B1 + self._salt) & M32
-        perm = st.perms[h >> 28]  # (10,) delays 1..10
         staged = self._stage(blk_rows.reshape(-1, roww), blk_alert.reshape(-1),
-                             ordinal.reshape(-1), perm, t, self._DT)
+                             ordinal.reshape(-1), self._cycle_perm(),
+                             st.t.reshape(-1), self._DT)
 
         # ---- boundary exchange (identity) + ranked owner-lane appends
         grows = pl.exchange(staged)
@@ -1121,8 +1269,12 @@ class TorchEngine:
         st.deferred.add_(n_late_new + n_defer_l)
         st.dropped.add_(dro_d + dro_a)
         st.enq.add_(att_d + att_a)
-        st.t.add_(1)
-        self._t += 1
+        if active is None:
+            st.t.add_(1)
+            self._tb += 1
+        else:
+            st.t.add_(self._lanes_of(active)[1])
+            self._tb += active
 
     def _probes(self):
         """The failure detector's probe emission of this cycle: every link
@@ -1154,8 +1306,18 @@ class TorchEngine:
 
     # -- public API ----------------------------------------------------------
 
+    def _one_trial(self, what: str) -> None:
+        """The public entry points read and write one trial (the host
+        mirrors hold trial 0's time and salt); on a trial axis they raise
+        rather than compute a wrong state."""
+        if self.batch > 1:
+            raise NotImplementedError(
+                f"TorchEngine.{what} takes one trial; drive a trial axis "
+                f"through engine.batched.BatchedTorchEngine")
+
     @property
     def t(self) -> int:
+        self._one_trial("t")
         return self._t
 
     @property
@@ -1206,6 +1368,7 @@ class TorchEngine:
         """The wheel's row-conservation invariant: every row ever appended
         is drained, still live, or accounted dropped. Raises
         AssertionError on violation; returns the figures."""
+        self._one_trial("check_conservation")
         st = self._st
         enq, ret = int(st.enq.sum()), int(st.ret.sum())
         live = self.in_flight
@@ -1219,21 +1382,25 @@ class TorchEngine:
                 "dropped": dro, "lost_to_fault": lost}
 
     def outputs(self) -> np.ndarray:
+        self._one_trial("outputs")
         out = knowledge_outputs(self.problem, self._st.inbox, self._st.x,
                                 self.pad)
         return out[: self.n].cpu().numpy().astype(np.int64)
 
     def votes(self) -> np.ndarray:
         """(n,) scalar data (majority votes); (n, D) when D > 1."""
+        self._one_trial("votes")
         x = self._st.x[: self.n].cpu().numpy().astype(np.int64)
         return x[:, 0] if self.dw == 1 else x
 
     def data(self) -> np.ndarray:
         """(n, D) quantized per-peer data plane."""
+        self._one_trial("data")
         return self._st.x[: self.n].cpu().numpy().astype(np.int64)
 
     def set_votes(self, idx: np.ndarray, new_votes: np.ndarray) -> None:
         """Data-change upcall: set X_self on `idx` and re-run test()."""
+        self._one_trial("set_votes")
         idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
         nd = self.problem.init_state(np.asarray(new_votes)).astype(np.int32)
         self._st.x[idx_t] = torch.from_numpy(nd).to(self.device)
@@ -1253,6 +1420,7 @@ class TorchEngine:
         """Membership upcall: a peer joins at `addr` (Alg. 2) with scalar
         data or a (D,) vector in raw units; returns its row. Outgrowing
         the padded tables re-pads them first (`_grow`)."""
+        self._one_trial("join")
         ring_after, k = self.ring.join(int(addr))
         if ring_after.n > self.pad:
             self._grow(ring_after.n)
@@ -1264,6 +1432,7 @@ class TorchEngine:
 
     def leave(self, idx: int) -> None:
         """Membership upcall: peer `idx` departs (Alg. 2)."""
+        self._one_trial("leave")
         if self.n <= 1:
             raise ValueError("cannot leave the last peer")
         if not 0 <= idx < self.n:
@@ -1281,6 +1450,7 @@ class TorchEngine:
         tree neighbours find it through the timeout detector. Rows in
         flight toward it die at the due-scan (`lost_to_fault`). Requires
         an armed fault plane (``faults=`` at construction)."""
+        self._one_trial("crash")
         if self._faults is None:
             raise RuntimeError(
                 "crash() requires an armed fault plane (faults=FaultConfig)")
@@ -1359,6 +1529,7 @@ class TorchEngine:
         one host read a cycle to size its window); an armed engine then
         runs its eviction sweep (eviction timing follows the step
         granularity, as the reference's)."""
+        self._one_trial("step")
         for _ in range(int(cycles)):
             self._cycle()
         self._fault_sweep()
@@ -1369,6 +1540,7 @@ class TorchEngine:
         each step (one host read of the check per cycle), in chunks of at
         most `CHUNK` checks; an armed engine runs its eviction sweep
         after each chunk, at the reference's dispatch boundaries."""
+        self._one_trial("run_until_converged")
         start_msgs = self.messages_sent
         state = {"stable": 0}
 

@@ -21,7 +21,9 @@
 // dozen steps (tree depth <= d): the longest row's serial steps, with the
 // launch and the reads, set the kernel's time, not its bytes. The step
 // cap only guards the card against a malformed ring, on which the
-// reference loop would not end.
+// reference loop would not end. A batched engine's tail is B equal
+// trial-major blocks of rows_per_trial rows, each trial with its own ring
+// maximum (max_addr[trial]).
 #include "addressing.cuh"
 #include "common.cuh"
 
@@ -42,7 +44,8 @@ __global__ void __launch_bounds__(kRows) descent_tail_kernel(
     const int64_t* __restrict__ pos_i, const int64_t* __restrict__ a_prev,
     const int64_t* __restrict__ a_self, const bool* __restrict__ self_seg,
     const int64_t* __restrict__ max_addr_p, int d, int64_t m,
-    bool* __restrict__ flags, int64_t* __restrict__ addrs) {
+    int64_t rows_per_trial, bool* __restrict__ flags,
+    int64_t* __restrict__ addrs) {
   const int64_t i = rt::global_index();
   if (i >= m) return;
   uint32_t cd = lo(dest, i), ce = lo(edge, i);
@@ -53,7 +56,8 @@ __global__ void __launch_bounds__(kRows) descent_tail_kernel(
   if (live[i]) {
     const uint32_t org = lo(origin, i), pos = lo(pos_i, i);
     const uint32_t ap = lo(a_prev, i), as = lo(a_self, i);
-    const uint32_t max_addr = lo(max_addr_p, 0);
+    const uint32_t max_addr =
+        lo(max_addr_p, i < rows_per_trial ? 0 : i / rows_per_trial);
     const bool sseg = self_seg[i];
     bool ent = entry[i];
     for (int step = 0; step < kMaxSteps; ++step) {
@@ -109,7 +113,8 @@ RT_EXPORT int rt_descent_tail(const void* origin, const void* dest,
                               const void* pos_i, const void* a_prev,
                               const void* a_self, const void* self_seg,
                               const void* max_addr, int32_t d, int64_t m,
-                              void* flags, void* addrs, void* stream) {
+                              int64_t rows_per_trial, void* flags,
+                              void* addrs, void* stream) {
   if (m > 0) {
     descent_tail_kernel<<<rt::blocks_for(m, kRows), kRows, 0,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -119,7 +124,7 @@ RT_EXPORT int rt_descent_tail(const void* origin, const void* dest,
         static_cast<const int64_t*>(pos_i), static_cast<const int64_t*>(a_prev),
         static_cast<const int64_t*>(a_self),
         static_cast<const bool*>(self_seg),
-        static_cast<const int64_t*>(max_addr), d, m,
+        static_cast<const int64_t*>(max_addr), d, m, rows_per_trial,
         static_cast<bool*>(flags), static_cast<int64_t*>(addrs));
   }
   return static_cast<int>(cudaGetLastError());

@@ -17,6 +17,10 @@ Its bound on the H100 is bytes: a row that is not live (most of the
 fixed-width tail) reads only live, dest, edge and has_edge, and the five
 outputs are rows of two buffers. In practice it waits on latency: the
 launch, the reads, and its longest row's serial steps.
+
+A batched engine passes every trial's tail in one call, trial-major in
+equal blocks, with one ring maximum (`max_addr`, the R2 repair's bound)
+per trial.
 """
 from __future__ import annotations
 
@@ -32,8 +36,11 @@ def descent_reference(origin, dest, edge, has_edge, live, entry, pos_i,
                       a_prev, a_self, self_seg, max_addr, d: int):
     """Plain version: the global live-mask loop (one host read of
     `any(live)` per step). Addresses int64 (M,), flags bool (M,),
-    `max_addr` an int64 tensor of one element. Returns (acc, drop,
-    o_dest, o_edge, o_he)."""
+    `max_addr` int64 (B,): one per trial, row r being trial r // (M / B)'s
+    (B = 1: one ring). Returns (acc, drop, o_dest, o_edge, o_he)."""
+    b, m = max_addr.numel(), origin.shape[0]
+    if b > 1:
+        max_addr = max_addr[torch.arange(m, device=origin.device) // (m // b)]
     acc = torch.zeros_like(live)
     drop = torch.zeros_like(live)
     o_dest, o_edge, o_he = dest, edge, has_edge
@@ -59,7 +66,7 @@ def descent_reference(origin, dest, edge, has_edge, live, entry, pos_i,
     return acc, drop, o_dest, o_edge, o_he
 
 
-_ARGS = [P] * 11 + [I32, I64] + [P] * 3
+_ARGS = [P] * 11 + [I32, I64, I64] + [P] * 3
 _NAMES = ("origin", "dest", "edge", "has_edge", "live", "entry", "pos_i",
           "a_prev", "a_self", "self_seg")
 _I64, _B = torch.int64, torch.bool
@@ -69,8 +76,9 @@ _DTYPES = (_I64, _I64, _I64, _B, _B, _B, _I64, _I64, _I64, _B)
 def descent_tail(origin, dest, edge, has_edge, live, entry, pos_i, a_prev,
                  a_self, self_seg, max_addr, d: int):
     """The plain version on the CPU; the CUDA per-row loop for CUDA
-    tensors (addresses int64 (M,), flags bool (M,), max_addr int64 (1,)).
-    Returns (acc, drop, o_dest, o_edge, o_he)."""
+    tensors (addresses int64 (M,), flags bool (M,), max_addr int64 (B,)
+    for B equal trial-major blocks of rows). Returns (acc, drop, o_dest,
+    o_edge, o_he)."""
     if not on_cuda(origin):
         return descent_reference(origin, dest, edge, has_edge, live, entry,
                                  pos_i, a_prev, a_self, self_seg, max_addr, d)
@@ -85,15 +93,18 @@ def descent_tail(origin, dest, edge, has_edge, live, entry, pos_i, a_prev,
             raise ValueError(f"descent_tail: {name} must be a contiguous "
                              f"({m},) tensor on {dev}, got {tuple(x.shape)} "
                              f"on {x.device}")
-    if (max_addr.dtype != _I64 or max_addr.device != dev
-            or max_addr.numel() != 1 or not 1 <= d <= 32):
-        raise ValueError("descent_tail: max_addr must be one int64 on the "
-                         "rows' device, d <= 32")
+    b = max_addr.numel()
+    if (max_addr.dtype != _I64 or max_addr.device != dev or b < 1 or m % b
+            or not max_addr.is_contiguous() or not 1 <= d <= 32):
+        raise ValueError("descent_tail: max_addr must be contiguous int64 on "
+                         "the rows' device, one per equal block of rows; "
+                         "d <= 32")
     flags = torch.empty((3, m), dtype=_B, device=dev)
     addrs = torch.empty((2, m), dtype=_I64, device=dev)
     fn = bind("descent", "rt_descent_tail", _ARGS)
     launched("descent_tail", fn(
-        *(ptr(x) for x in rows), ptr(max_addr), int(d), m, ptr(flags),
+        *(ptr(x) for x in rows), ptr(max_addr), int(d), m,
+        max(m // b, 1), ptr(flags),
         ptr(addrs), stream_of(dev)))
     acc, drop, o_he = flags.unbind(0)
     o_dest, o_edge = addrs.unbind(0)

@@ -9,7 +9,8 @@ Each hand-written kernel is held against its plain PyTorch version on
 the same CUDA inputs at the n = 1e6 shapes of the main path, and the
 engine with its kernels against the engine with their plain versions
 (majority, mean and L2, under churn; L2 at D = 9 on the general kernel;
-armed with the fault plane through crashes and drops). Every comparison
+armed with the fault plane through crashes and drops; batched trials,
+each wheel kernel once a cycle for all of them; a serve replay). Every comparison
 is exact
 (tolerance 0): the kernels are integer code, and the L2 kernel's float32
 margins keep the plain version's operation order.
@@ -296,8 +297,11 @@ def test_stage_rows_kernel_matches_plain(cuda, roww):
     mask = torch.from_numpy(rng.random(m) < 0.6)
     args = [rows.to(cuda), torch.from_numpy(rng.random(m) < 0.15).to(cuda),
             (torch.cumsum(mask.long(), 0) - 1).to(cuda),  # -1 before the first
-            torch.from_numpy((rng.permutation(10) + 1).astype(np.int32)).to(cuda)]
+            torch.from_numpy((rng.permutation(10) + 1).astype(np.int32))[None]
+            .to(cuda)]
     for t in (12345, 0xFFFFFFFF - 4):  # the stamp wraps at 32 bits
+        t = torch.from_numpy(np.asarray([t], np.uint32).view(np.int32)).to(
+            cuda)
         want = stage_rows_reference(*args, t, roww - 1)
         got = stage_rows(*args, t, roww - 1)
         torch.cuda.synchronize()
@@ -342,13 +346,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rows = torch.zeros((16, 8), dtype=torch.int64, device=cuda)
     alert = torch.zeros(16, dtype=torch.bool, device=cuda)
     ordinal = torch.zeros(16, dtype=torch.int64, device=cuda)
-    perm = torch.arange(1, 11, dtype=torch.int32, device=cuda)
+    perm = torch.arange(1, 11, dtype=torch.int32, device=cuda)[None]
+    t0 = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        stage_rows(rows.int(), alert, ordinal, perm, 0, 7)
+        stage_rows(rows.int(), alert, ordinal, perm, t0, 7)
     with pytest.raises(ValueError):
-        stage_rows(rows, alert.cpu(), ordinal, perm, 0, 7)
+        stage_rows(rows, alert.cpu(), ordinal, perm, t0, 7)
     with pytest.raises(ValueError):
-        stage_rows(rows[:, ::2], alert, ordinal, perm, 0, 3)
+        stage_rows(rows[:, ::2], alert, ordinal, perm, t0, 3)
     with pytest.raises(NotImplementedError):
         threshold_step(object(), torch.zeros((4, 3, 2), dtype=torch.int32,
                                              device=cuda),
@@ -522,6 +527,146 @@ def test_engine_majority_step_route_matches_plain(cuda):
     sa, sb = state_to_numpy(a._st), state_to_numpy(b._st)
     for k in sa:
         assert np.array_equal(sa[k], sb[k]), k
+
+
+# -- batched trials and the serve layer -------------------------------------
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_stage_rows_per_trial_kernel_matches_plain(cuda, batch):
+    """(B, 10) perms and (B,) times over B trial-major blocks (B = 1:
+    the single engine's call)."""
+    m = batch * 65_568  # a trial's staged rows at n = 1e5
+    rng = np.random.default_rng(21)
+    rows = torch.from_numpy(rng.integers(0, 2**32, (m, 8), dtype=np.uint64)
+                            .astype(np.int64)).to(cuda)
+    alert = torch.from_numpy(rng.random(m) < 0.15).to(cuda)
+    ordinal = (torch.cumsum(torch.from_numpy(rng.random(m) < 0.6).long(), 0)
+               - 1).to(cuda)
+    perm = torch.from_numpy(np.stack([rng.permutation(10) + 1 for _ in range(
+        batch)]).astype(np.int32)).to(cuda)
+    t = torch.tensor([12345, -5, 7, 2**31 - 1][:batch], dtype=torch.int32,
+                     device=cuda)
+    args = (rows, alert, ordinal, perm, t, 7)
+    want = stage_rows_reference(*args)
+    before = LAUNCHES["stage_rows"]
+    got = stage_rows(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["stage_rows"] == before + 1
+    _same((got,), (want,))
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_descent_tail_per_trial_kernel_matches_plain(cuda, batch):
+    """B trial-major blocks of rows on B rings, each with its own ring
+    maximum; at B = 1 the single engine's one-element max_addr."""
+    rng = np.random.default_rng(22)
+    n, d, m = 4096, 32, 8_196
+    cols = []
+    for b in range(batch):
+        addrs = A.random_ring(n, d, seed=30 + b).astype(np.int64)
+        prev = np.roll(addrs, 1)
+        pos = A.position_from_segment(torch.from_numpy(prev),
+                                      torch.from_numpy(addrs), d).numpy()
+        dest = rng.integers(0, 2**d, m, dtype=np.uint64).astype(np.int64)
+        own = np.searchsorted(addrs, dest, side="left") % n
+        cols.append([addrs[rng.integers(0, n, m)], dest,
+                     rng.integers(0, 2**d, m, dtype=np.uint64).astype(
+                         np.int64), rng.random(m) < 0.7,
+                     rng.random(m) < 0.8, rng.random(m) < 0.5, pos[own],
+                     prev[own], addrs[own], addrs[-1]])
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(cuda)
+    args = [t(np.concatenate(c)) for c in zip(*[c[:9] for c in cols])]
+    args.insert(9, in_segment(args[0], args[7], args[8]))
+    max_addr = t(np.asarray([c[9] for c in cols], np.int64))
+    want = descent_reference(*args, max_addr, d)
+    before = LAUNCHES["descent_tail"]
+    got = descent_tail(*args, max_addr, d)
+    torch.cuda.synchronize()
+    assert LAUNCHES["descent_tail"] == before + 1
+    _same(got, want)
+
+
+def _trial_states(eng):
+    from repro_torch.engine.convert import trials_to_numpy
+
+    return trials_to_numpy(eng._eng._st, eng.batch)
+
+
+def test_batched_engine_kernels_match_plain_and_launch(cuda):
+    """Four majority trials on four rings, kernels-on vs plain, both on
+    the card: each wheel kernel launches once a cycle for all four; full
+    state equal per trial through converge, a ragged flip and a second
+    run at different t."""
+    B, n = 4, 4096
+    rng = np.random.default_rng(23)
+    rings = [Ring.random(n, 32, seed=40 + b) for b in range(B)]
+    votes = np.stack([(rng.random(n) < mu).astype(np.int64)
+                      for mu in (0.4, 0.45, 0.55, 0.6)])
+    a, b = (make_engine("torch", rings, votes, seed=5, batch=B,
+                        capacity_per_peer=8, wheel_kernels=wk)
+            for wk in ("auto", "none"))
+    reset_launches()
+    a.step(30)
+    b.step(30)
+    assert launch_counts() == {
+        "stage_rows": 30, "threshold_step": 30, "due_dedup": 30,
+        "descent_tail": 30, "threshold_step_mean": 0, "threshold_step_l2": 0,
+        "threshold_step_l2_general": 0, "majority_step": 0,
+        "threshold_gate": 0, "rglru_scan": 0, "flash_attention_fwd": 0}
+
+    def same(where):
+        for tb, (sa, sb) in enumerate(zip(_trial_states(a), _trial_states(b))):
+            for k in sa:
+                assert np.array_equal(sa[k], sb[k]), (where, tb, k)
+
+    same("step")
+    truths = (2 * votes.sum(1) >= n).astype(np.int64)
+    ra = a.run_until_converged(truths)
+    assert ra == b.run_until_converged(truths)
+    assert all(r["converged"] == 1.0 for r in ra)
+    same("converged")
+    idx = np.full((B, 600), -1)
+    idx[1] = np.arange(600) * 5
+    idx[3, :7] = np.arange(7)
+    for e in (a, b):
+        e.set_votes(idx, np.zeros((B, 600), np.int64))
+    same("ragged flip")
+    truths = (2 * a.votes().sum(1) >= n).astype(np.int64)
+    ra = a.run_until_converged(truths)
+    assert ra == b.run_until_converged(truths)
+    same("second run")
+    assert (a.dropped == 0).all()
+    a.check_conservation()
+
+
+def test_serve_replay_kernels_match_plain(cuda):
+    """One seeded serve workload (submits, churn, subscriber flips)
+    through a ThresholdServer over the engine with its kernels and with
+    their plain versions: the same transitions, outputs and state."""
+    from repro_torch.launch.serve import (ThresholdServer, gen_workload,
+                                          replay_workload)
+
+    n = 2048
+    ring = Ring.random(n, 32, seed=24)
+    votes = (np.random.default_rng(24).random(n) < 0.4).astype(np.int64)
+    work = gen_workload(ring, "majority", windows=20, seed=25, rate=80.0,
+                        p_churn=0.5, window_cycles=8, p_flip_sub=0.25)
+    runs = []
+    for wk in ("auto", "none"):
+        eng = make_engine("torch", ring, votes, seed=26, capacity_per_peer=8,
+                          wheel_kernels=wk)
+        server = ThresholdServer(eng, window=8)
+        trs = []
+        server.subscribe(lambda tr: trs.append((tr.t, tr.peers, tr.output)))
+        replay_workload(server, work,
+                        after_pump=lambda _i: eng.check_conservation())
+        runs.append((eng, trs, server.stats()))
+    (a, ta, sa), (b, tb, sb) = runs
+    assert ta == tb and ta and sa == sb and sa["dropped"] == 0
+    np.testing.assert_array_equal(a.outputs(), b.outputs())
+    xa, xb = state_to_numpy(a._st), state_to_numpy(b._st)
+    for k in xa:
+        assert np.array_equal(xa[k], xb[k]), k
 
 
 # -- the training substrate's kernels ---------------------------------------

@@ -149,8 +149,9 @@ def test_stage_rows_plain_matches_jax(m, roww, t):
              jnp.asarray(perm), jnp.asarray(t, jnp.int32))
     want_ref = _r_stage(*jargs, dt_col)
     want_pl = stage_rows_kernel(*jargs, dt_col, interpret=True)
-    got = stage_rows(_t(rows), _t(alert), _t(ordinal), _t(perm, torch.int32),
-                     t, dt_col)
+    t32 = torch.from_numpy(np.asarray([t], np.uint32).view(np.int32))
+    got = stage_rows(_t(rows), _t(alert), _t(ordinal),
+                     _t(perm[None], torch.int32), t32, dt_col)
     _eq(got, want_ref, "vs reference")
     _eq(got, want_pl, "vs Pallas")
 
