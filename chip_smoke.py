@@ -27,13 +27,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      the L2 forms' CUDA tests (tests/test_torch_cuda.py, the general
      kernel's tiling cases among them) in a pytest process of their own;
   3. runs the engine with its kernels and with their plain versions, both
-     on the card, at n = 4096: majority for 300 cycles; mean (tau 0.3)
-     and L2 (tau 1, D 2) through a data flip and 8 churn events 20 cycles
-     apart; majority without the threshold kernel (its event react runs
-     `majority_step`) through the same; L2 at D = 9 (the general kernel,
-     whose launches count under a name of their own) through a data
-     flip. The full state must be equal after every stage and every
-     churn event;
+     on the card, at n = 4096: majority, mean (tau 0.3) and L2 (tau 1,
+     D 2) through 60 cycles, a data flip and 8 churn events
+     20 cycles apart; majority without the threshold kernel (its event
+     react runs `majority_step`) through the same; L2 at D = 9 (the
+     general kernel, whose launches count under a name of their own)
+     through a data flip. The full state must be equal after every stage
+     and every churn event; the churn cells' kernels-on digests are kept
+     for phase 17;
   4. the majority main path at n = 100,000: converge at mu = 0.45, flip
      the votes to mu = 0.55 through `apply_coalesced`, converge again;
   5. n = 1,000,000 majority peers: the init storm and 100 cycles, then a
@@ -113,11 +114,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      n = 100,000, window 8, 4,000 updates in 16 bursts with a join and a
      leave each, every burst pumped until settled: updates/s, settle
      latencies in cycles and ms, transitions, dropped 0;
+ 17. the sharded engine (`make_engine(..., mesh=)`, one process a rank
+     through `launch.mesh.spawn`): world 1 on NCCL and worlds 2 and 4 on
+     gloo, every rank on this card. Each world runs phase 3's majority
+     churn cell, and world 2 also its mean, L2 and no-threshold cells,
+     the plain majority engine and phase 12's first fault schedule armed;
+     every rank's gathered state must equal, by sha256 of every field,
+     the kernels-on single engine's at each check of phases 3 and 12,
+     where that engine equalled the plain one. Each world runs phase 4
+     (n = 100,000, the same stage cycles), its wheel kernels held exactly
+     against their plain versions on its first cycle, each wheel kernel
+     launched once a cycle on every rank, rank 0 profiled, the exchange
+     timed alone; world 1 also runs phase 5 (n = 1,000,000), equal to its
+     engine in every state field, outputs and counters. NCCL at world 2
+     or 4 runs only with a card a rank;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
-     schedule, phase 15's batched engines, phase 16): every kernel the
+     schedule, phase 15's batched engines, phase 16, phase 17's ranks,
+     summed): every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
      the plain version). Prints one JSON line with every kernel's
@@ -130,6 +146,7 @@ port's sources are missing. Imports neither jax nor the JAX package.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -199,6 +216,9 @@ PATH_KERNELS = {
     "batched": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
     "serve": {"stage_rows", "threshold_step", "due_dedup", "descent_tail",
               "threshold_step_mean", "threshold_step_l2"},
+    # phase 17's ranks, summed over every rank of worlds 1, 2 and 4
+    "sharded": {"stage_rows", "threshold_step", "due_dedup", "descent_tail",
+                "majority_step", "threshold_step_mean", "threshold_step_l2"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -224,7 +244,12 @@ def l2_ops_per_row(dim: int, ndirs: int, general: bool = False) -> int:
     return ndirs * (7 * (2 * dim + 1) + 7) + 10 * (dim + 1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):  # each phase's start, in script seconds
+        msg = f"{msg} [at {time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -749,62 +774,104 @@ def assert_same_state(a, b, where: str) -> None:
         assert np.array_equal(sa[f], sb[f]), f"state field {f} differs {where}"
 
 
-def phase_parity(dev, n: int, cycles: int) -> None:
-    a, _, _ = make(n, dev, seed=11, mu=0.45)
-    b, _, _ = make(n, dev, seed=11, mu=0.45, wheel_kernels="none")
-    for done in range(0, cycles, 50):
-        k = min(50, cycles - done)
-        a.step(k)
-        b.step(k)
-        assert_same_state(a, b, f"after {done + k} cycles")
-    assert a.dropped == 0
-    log(f"  n={n}: kernels-on and plain engines equal in full state after "
-        f"{cycles} cycles (t={a.t}, messages={a.messages_sent}, "
-        f"deferred={a.deferred})")
+CHURN_N = 4096  # the churn cells' ring size (phases 3 and 17)
+NO_THRESHOLD = ("dedup", "enqueue", "descent")
 
 
-def phase_parity_churn(dev, n: int, label: str, build, flip) -> dict:
-    """Kernels-on vs plain engines in lockstep through 60 cycles, a data
-    change (`flip(eng)`), then 8 churn events 20 cycles apart; full state
-    compared after the 60 cycles, after the flip, after each churn event
-    and after the cycles that follow it. Returns the kernels-on engine's
-    launch counts (reset just before it is built; the plain engine
-    launches no kernel)."""
+def state_digest(st: dict) -> dict:
+    """sha256 of each state field (dtype, shape and bytes)."""
+    return {k: hashlib.sha256(f"{v.dtype}{v.shape}".encode()
+                              + v.tobytes()).hexdigest()
+            for k, v in st.items()}
+
+
+def snapshot(eng) -> dict:
+    """The digest of the engine's whole state (a sharded engine's blocks
+    gathered, on every rank)."""
+    return state_digest(eng.global_state())
+
+
+def churn_cell(cell: str, dev, plain: bool = False, **mesh):
+    """The engine of churn cell `cell` ("majority", "mean" (tau 0.3),
+    "l2" (tau 1, D 2) or "majority_no_threshold") at n = CHURN_N, with its
+    kernels ("majority_no_threshold": all but the threshold kernel) or,
+    `plain`, every plain version; `mesh` goes to `make_engine`. Returns
+    (the engine, the data its flip sets)."""
+    import numpy as np
+    from repro_torch.engine import L2Thresh, MeanMonitor
+
+    n, rng = CHURN_N, np.random.default_rng(5)
+    if cell in ("mean", "l2"):
+        prob = MeanMonitor(tau=0.3) if cell == "mean" else L2Thresh(tau=1.0,
+                                                                   dim=2)
+        eng = make_problem(cell, prob, n, dev, seed=12,
+                           wheel_kernels="none" if plain else "auto",
+                           **mesh)[0]
+        return eng, problem_data(cell, n, rng, 1)
+    wk = "none" if plain else (NO_THRESHOLD if cell == "majority_no_threshold"
+                               else "auto")
+    eng = make(n, dev, seed=12, mu=0.45, wheel_kernels=wk, **mesh)[0]
+    return eng, votes_at(n, 0.55, rng)
+
+
+def churn_script(engs, new, check) -> None:
+    """The churn cells' script on `engs` in lockstep: 60 cycles, a data
+    flip to `new` over every peer, then 8 churn events 20 cycles apart;
+    `check(where)` after the 60 cycles, after the flip, after each churn
+    event and after the 20 cycles that follow it."""
     import numpy as np
     from repro_torch.core.churn import random_schedule
-    from repro_torch.kernels.wheel import launch_counts, reset_launches
 
-    reset_launches()
-    a, b = build("auto"), build("none")
-    for e in (a, b):
+    a = engs[0]
+    for e in engs:
         e.step(60)
-    assert_same_state(a, b, f"({label}) after 60 cycles")
-    for e in (a, b):
-        flip(e)
-    assert_same_state(a, b, f"({label}) after the data flip")
+    check("after 60 cycles")
+    for e in engs:
+        e.apply_coalesced(np.arange(new.shape[0]), new)
+    check("after the data flip")
     sched = random_schedule(a.ring, 8, seed=13, spacing=20)
     for i, (op, gap, snap) in enumerate(zip(sched.ops, sched.gaps,
                                              sched.snaps)):
-        for e in (a, b):
+        for e in engs:
             if op[0] == "join":
                 e.join(op[1], vote=op[2])
             else:
                 e.leave(op[1])
         assert np.array_equal(np.asarray(a.ring.addrs), snap[0].addrs)
-        assert_same_state(a, b, f"({label}) after churn event {i} ({op[0]})")
-        for e in (a, b):
+        check(f"after churn event {i} ({op[0]})")
+        for e in engs:
             e.step(int(gap))
-        assert_same_state(a, b, f"({label}) {gap} cycles after event {i}")
+        check(f"{gap} cycles after event {i}")
+    for e in engs:
+        assert e.dropped == 0
+        e.check_conservation()
+
+
+def phase_parity_churn(dev, cell: str, label: str) -> tuple:
+    """Kernels-on vs plain engines of churn cell `cell` (`churn_cell`) in
+    lockstep through `churn_script`, full state compared at each of its
+    checks. Returns the kernels-on engine's launch counts (reset just
+    before it is built; the plain engine launches no kernel) and its
+    state digest at each check: the trajectory phase 17's sharded engines
+    must reproduce."""
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    reset_launches()
+    (a, new), (b, _) = churn_cell(cell, dev), churn_cell(cell, dev, True)
+    digests = []
+
+    def check(where):
+        assert_same_state(a, b, f"({label}) {where}")
+        digests.append(snapshot(a))
+
+    churn_script((a, b), new, check)
     sync(dev)
     counts = launch_counts()
-    assert a.dropped == 0
-    a.check_conservation()
-    joins = sum(op[0] == "join" for op in sched.ops)
-    log(f"  n={n} {label}: kernels-on and plain engines equal in full state "
-        f"after 60 cycles, after a data flip, and after each of 8 churn "
-        f"events ({joins} joins) and the 20 cycles after it (t={a.t}, "
-        f"n={a.n}, messages={a.messages_sent}, deferred={a.deferred})")
-    return counts
+    log(f"  n={CHURN_N} {label}: kernels-on and plain engines equal in full "
+        f"state after 60 cycles, after a data flip, and after each of 8 "
+        f"churn events and the 20 cycles after it (t={a.t}, n={a.n}, "
+        f"messages={a.messages_sent}, deferred={a.deferred})")
+    return counts, digests
 
 
 def phase_parity_l2_any_dim(dev, n: int, dim: int) -> None:
@@ -919,32 +986,31 @@ def fault_schedule(problem_name: str, seed: int, faults: str) -> dict:
             "faults": fcfg}
 
 
-def phase_fault_parity(dev, sched: dict, wheel_kernels) -> None:
-    """One fault schedule on two armed engines in lockstep, event by
-    event: `wheel_kernels` vs every plain version. Full state, the
-    eviction timeline and the loss tally equal after every event and at
-    convergence."""
+def fault_engine(sched: dict, dev, wheel_kernels, **mesh):
+    """The armed engine of fault schedule `sched` (`fault_schedule`) with
+    `wheel_kernels`; `mesh` goes to `make_engine`."""
     from repro_torch.core.dht import Ring
     from repro_torch.engine import FaultConfig, get_problem, make_engine
 
     name = sched["problem"]
     kw = {"mean": dict(tau=0.0), "l2": dict(tau=1.0, dim=2)}.get(name, {})
-    problem = get_problem(name, **kw)
-    ring = Ring.random(sched["n"], 32, seed=sched["ring_seed"])
-    a, b = (make_engine("torch", ring, sched["data"],
-                        seed=sched["eng_seed"], device=dev, problem=problem,
-                        faults=FaultConfig(**sched["faults"]),
-                        wheel_kernels=wk)
-            for wk in (wheel_kernels, "none"))
+    return make_engine("torch", Ring.random(sched["n"], 32,
+                                            seed=sched["ring_seed"]),
+                       sched["data"], seed=sched["eng_seed"], device=dev,
+                       problem=get_problem(name, **kw),
+                       faults=FaultConfig(**sched["faults"]),
+                       wheel_kernels=wheel_kernels, **mesh)
 
-    def both_equal(where):
-        assert_same_state(a, b, where)
-        assert a.evictions == b.evictions, where
-        assert a.lost_to_fault == b.lost_to_fault, where
-        a.check_conservation()
 
+def fault_script(engs, sched: dict, check) -> None:
+    """The events of fault schedule `sched` on `engs` in lockstep (a mesh
+    resize does nothing on one engine), then the run to convergence;
+    `check(where)` after every event and at convergence."""
+    problem = engs[0].problem
+    converge = lambda e: e.run_until_converged(
+        problem.global_output(e.data()), max_cycles=40_000)
     for i, ev in enumerate(sched["events"]):
-        for e in (a, b):
+        for e in engs:
             if ev[0] == "step":
                 e.step(ev[1])
             elif ev[0] == "set":
@@ -956,21 +1022,43 @@ def phase_fault_parity(dev, sched: dict, wheel_kernels) -> None:
             elif ev[0] == "crash":
                 e.crash(ev[1])
             elif ev[0] == "settle":
-                res = e.run_until_converged(
-                    problem.global_output(e.data()), max_cycles=40_000)
-                assert res["converged"] == 1.0, (name, ev)
-        both_equal(f"({name}) after event {i} {ev[0]}")
-    for e in (a, b):
-        res = e.run_until_converged(problem.global_output(e.data()),
-                                    max_cycles=40_000)
-        assert res["converged"] == 1.0, name
-    both_equal(f"({name}) at convergence")
+                assert converge(e)["converged"] == 1.0, (problem.name, ev)
+        check(f"after event {i} {ev[0]}")
+    for e in engs:
+        assert converge(e)["converged"] == 1.0, problem.name
+    check("at convergence")
+
+
+def fault_digest(eng) -> tuple:
+    """An armed engine's state digest, eviction timeline and loss tally."""
+    return snapshot(eng), list(eng.evictions), eng.lost_to_fault
+
+
+def phase_fault_parity(dev, sched: dict, wheel_kernels) -> list:
+    """One fault schedule on two armed engines in lockstep, event by
+    event (`fault_script`): `wheel_kernels` vs every plain version. Full
+    state, the eviction timeline and the loss tally equal after every
+    event and at convergence. Returns the `wheel_kernels` engine's
+    `fault_digest` at each of those checks."""
+    a, b = (fault_engine(sched, dev, wk) for wk in (wheel_kernels, "none"))
+    digests = []
+
+    def check(where):
+        where = f"({sched['problem']}) {where}"
+        assert_same_state(a, b, where)
+        assert a.evictions == b.evictions, where
+        assert a.lost_to_fault == b.lost_to_fault, where
+        a.check_conservation()
+        digests.append(fault_digest(a))
+
+    fault_script((a, b), sched, check)
     assert a.dropped == 0 and a.lost_to_fault > 0
-    log(f"  {name} seed {sched['eng_seed'] - 7} ({'crash' if sched['faults']['evict_after'] else 'drop'}"
+    log(f"  {sched['problem']} seed {sched['eng_seed'] - 7} ({'crash' if sched['faults']['evict_after'] else 'drop'}"
         f", kernels {wheel_kernels}): equal in full state after each of "
         f"{len(sched['events'])} events and at convergence (t={a.t}, "
         f"n={a.n}, evictions {a.evictions}, lost_to_fault "
         f"{a.lost_to_fault})")
+    return digests
 
 
 class CycleKernelCheck:
@@ -2447,6 +2535,319 @@ def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
     return rec
 
 
+# -- phase 17: the sharded engine on the card ---------------------------------
+
+SHARD_WORLDS = (1, 2, 4)
+WHEEL_PER_CYCLE = ("stage_rows", "threshold_step", "due_dedup", "descent_tail")
+
+
+def shard_cells(world: int):
+    """Phase 17's parity cells at `world` ranks: majority through a data
+    flip and 8 churn events everywhere; at world 2 also mean and L2, the
+    majority engine without the threshold kernel, the plain majority
+    engine, and the first fault schedule armed."""
+    return ("majority",) + (("mean", "l2", "majority_no_threshold",
+                             "majority_plain", "armed") if world == 2 else ())
+
+
+def shard_cell_run(cell: str, dev, **mesh) -> list:
+    """Cell `cell` on one engine with `mesh` passed to `make_engine`:
+    phase 3's churn script on its churn cell (kernels-on; every plain
+    version for "majority_plain"), or for "armed" phase 12's script of
+    the first fault schedule, kernels-on. Returns the state digest (for
+    "armed" the `fault_digest`) at each of the script's checks."""
+    out = []
+    if cell == "armed":
+        sched = fault_schedule(*FAULT_GRID[0])
+        eng = fault_engine(sched, dev, "auto", **mesh)
+        fault_script((eng,), sched, lambda _: out.append(fault_digest(eng)))
+        eng.check_conservation()
+    else:
+        eng, new = churn_cell(cell.replace("_plain", ""), dev,
+                              cell.endswith("_plain"), **mesh)
+        churn_script((eng,), new, lambda _: out.append(snapshot(eng)))
+    return out
+
+
+def rank_profile(eng, dev, cycles: int) -> dict:
+    """Device ms and launches a cycle of this rank over `cycles` cycles
+    (`device_events` after a 2-cycle warm-up). Every rank profiles the
+    same calls; a session with fewer device events than this rank's
+    counted launches is refused on every rank (one all-reduce) and all
+    profile again, at most three times."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.wheel import LAUNCHES
+
+    for _ in range(3):
+        k0 = {}
+        wall, ev = device_events(
+            dev, lambda: (k0.update(LAUNCHES), eng.step(cycles)),
+            warmup=lambda: eng.step(2), cpu=False)
+        counted = sum(v - k0[k] for k, v in LAUNCHES.items())
+        dev_us = sum(e.self_device_time_total for e in ev)
+        launches = sum(e.count for e in ev)
+        bad = torch.tensor([int(dev.type == "cuda" and (
+            dev_us <= 0 or launches < counted))], device=dev)
+        dist.all_reduce(bad, group=eng.group)
+        if not int(bad):
+            break
+    else:
+        raise RuntimeError("three profiles of the sharded cycle dropped "
+                           "events")
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    return {"device_ms_per_cycle": dev_us / 1e3 / cycles,
+            "launches_per_cycle": launches / cycles,
+            "wall_ms_per_cycle": wall * 1e3 / cycles,
+            "top": [(e.key[:90], e.self_device_time_total / cycles,
+                     e.count / cycles) for e in top]}
+
+
+def exchange_cost(eng, dev, iters: int = 20) -> dict:
+    """The cycle's boundary exchange alone at the cycle's shape (every
+    lane's 4 window_l staged rows, disarmed): host ms a call around
+    synchronized calls, the bytes each rank sends (its lanes' packet,
+    32-bit columns plus the meta column) and the bytes each receives
+    (every rank's)."""
+    import torch
+
+    L, rows, roww = eng.loc_lanes, 4 * eng.window_l, eng.roww
+    blk = (torch.zeros((L, rows, roww), dtype=torch.int64, device=dev),
+           torch.ones((L, rows), dtype=torch.bool, device=dev),
+           torch.zeros((L, rows), dtype=torch.bool, device=dev))
+    for _ in range(3):
+        eng._plane.exchange(blk)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        eng._plane.exchange(blk)
+    sync(dev)
+    sent = L * rows * (roww + 1) * 4
+    return {"ms": (time.perf_counter() - t0) * 1e3 / iters,
+            "bytes_sent": sent, "bytes_gathered": sent * eng.n_shards}
+
+
+def shard_converge(dev, n: int, group) -> dict:
+    """Phase 4 on the sharded engine at n peers (1e5), converge at mu = 0.45,
+    flip to 0.55 through `apply_coalesced`, converge again; the wheel
+    kernels held exactly against their plain versions on the first cycle
+    and on each cycle whose descent batch is 1.5 times the widest checked
+    (`CycleKernelCheck`, its host time left out of the rate); then 10
+    cycles with every wheel kernel launched once a cycle, a profile of 10
+    cycles and the exchange alone."""
+    from repro_torch.kernels.wheel import launch_counts
+
+    eng, votes, rng = make(n, dev, seed=3, mu=0.45, mesh=group)
+    chk = CycleKernelCheck(eng, dev, keys=("_descent", "_dedup", "_thresh",
+                                           "_stage"))
+    chk.restart()
+    out = {}
+    for stage, mu in ((1, None), (2, 0.55)):
+        if mu is not None:
+            new = votes_at(n, mu, rng)
+            chg = (new != eng.votes()).nonzero()[0]
+            eng.apply_coalesced(chg, new[chg])
+            votes = new
+        truth = int(2 * votes.sum() >= n)
+        sync(dev)
+        t0, c0, s0 = time.perf_counter(), eng.t, chk.seconds
+        res = eng.run_until_converged(truth=truth, max_cycles=20_000)
+        sync(dev)
+        dt = time.perf_counter() - t0 - (chk.seconds - s0)
+        assert res["converged"] == 1.0 and eng.dropped == 0
+        eng.check_conservation()
+        assert (eng.outputs() == truth).all()
+        out[f"stage{stage}"] = dict(cycles=eng.t - c0,
+                                    messages=res["messages"],
+                                    cycles_per_s=(eng.t - c0) / dt)
+    chk.remove()
+    assert chk.complete(), chk.checked
+    out["checked"] = chk.checked
+    c0 = launch_counts()
+    eng.step(10)
+    per = {k: v - c0[k] for k, v in launch_counts().items()}
+    if dev.type == "cuda":  # the CPU runs the plain versions
+        assert all(per[k] == 10 for k in WHEEL_PER_CYCLE), per
+    out["launches_10_cycles"] = {k: per[k] for k in WHEEL_PER_CYCLE}
+    out["profile"] = rank_profile(eng, dev, 10)
+    out["exchange"] = exchange_cost(eng, dev)
+    return out
+
+
+def shard_big(dev, n: int, group) -> dict:
+    """Phase 5 on the sharded engine at n peers (1e6): the init storm and 100
+    cycles; the outputs, the counters and each state field's digest, and
+    a profile of 10 cycles."""
+    import hashlib
+
+    sync(dev)
+    t0 = time.perf_counter()
+    eng, _, _ = make(n, dev, seed=5, mu=0.45, mesh=group)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.step(100)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    rec = {"init_s": t_init, "cycles_per_s": 100 / dt,
+           "digest": snapshot(eng), "counters": big_counters(eng),
+           "outputs": hashlib.sha256(eng.outputs().tobytes()).hexdigest()}
+    rec["profile"] = rank_profile(eng, dev, 10)
+    rec["exchange"] = exchange_cost(eng, dev, iters=10)
+    return rec
+
+
+def big_counters(eng) -> dict:
+    return {"t": eng.t, "messages": eng.messages_sent,
+            "in_flight": eng.in_flight, "deferred": eng.deferred,
+            "dropped": eng.dropped, **eng.check_conservation()}
+
+
+def shard_rank(dev, group, world: int, n_mid: int, n_big: int) -> dict:
+    """Phase 17 on one rank of `group` (`world` ranks): the parity cells of
+    `world`, phase 4 at n_mid peers, and unless `n_big` is 0 phase 5 at
+    n_big; the rank's launch counts and its wall time."""
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {"cells": {c: shard_cell_run(c, dev, mesh=group)
+                     for c in shard_cells(world)}}
+    out["mid"] = shard_converge(dev, n_mid, group)
+    if n_big:
+        out["big"] = shard_big(dev, n_big, group)
+    sync(dev)
+    out["launches"] = launch_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def shard_job(rank: int, world: int, dev, worlds, n_mid: int,
+              n_big: int) -> dict:
+    """One rank of a spawned job of `world` ranks: for each world size w
+    of `worlds`, `shard_rank` on the job's first w ranks (the whole job,
+    or a `dist.new_group` of them on the job's backend; the other ranks
+    wait at a barrier), phase 5 at world 1 only. Returns {w: this rank's
+    record} for the worlds it took part in."""
+    import torch.distributed as dist
+
+    out = {}
+    for w in worlds:
+        group = (dist.group.WORLD if w == world
+                 else dist.new_group(list(range(w))))
+        if rank < w:
+            out[w] = shard_rank(dev, group, w, n_mid, n_big if w == 1 else 0)
+        dist.barrier()
+    return out
+
+
+def log_top(prof: dict) -> None:
+    """Rank 0's largest device events a cycle, from `rank_profile`."""
+    for key, us, count in prof["top"]:
+        log(f"    {us:9.1f} us/cycle {count:5.1f}x  {key}")
+
+
+def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
+                  n_mid: int = N_MID, n_big: int = N_BIG) -> tuple:
+    """Phase 17. World 1 on NCCL, then worlds 2 and 4 on gloo (every rank
+    on this card, one spawned job of 4 ranks, world 2 on its first two)
+    run `shard_rank`: every rank gathers the same state, and each cell's
+    digests equal `want`'s, the kernels-on single engine's of phases 3
+    and 12, held there against the plain engine at every check
+    ("majority_plain", the plain sharded engine, against the kernels-on
+    single one); the 1e5 stage cycles equal phase 4's; at world 1 the 1e6
+    state, outputs and counters equal phase 5's. Returns (the record, the
+    path's launches summed over every rank)."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+
+    want = dict(want, majority_plain=want["majority"])
+    rec, launches = {}, {}
+    # NCCL takes one rank a card: more ranks on this card go on gloo
+    jobs = (("nccl" if dev.type == "cuda" else "gloo", (1,)),
+            ("gloo", tuple(w for w in SHARD_WORLDS if w > 1)))
+    for backend, worlds in jobs:
+        job = spawn(shard_job, max(worlds), backend, str(dev), worlds,
+                    n_mid, n_big, timeout=900)
+        for world in worlds:
+            got = [g[world] for g in job[:world]]
+            r0 = got[0]
+            for r, g in enumerate(got):
+                assert g["cells"] == r0["cells"], (
+                    f"world {world}: rank {r} gathered another state than "
+                    f"rank 0")
+            for cell, digests in r0["cells"].items():
+                assert digests == want[cell], (
+                    f"world {world} cell {cell}: the sharded state differs "
+                    f"from the single engine's")
+            for g in got:
+                for k, v in g["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            mid = r0["mid"]
+            for st in ("stage1", "stage2"):
+                assert mid[st]["cycles"] == conv[st]["cycles"], (world, st)
+                assert all(g["mid"][st]["cycles"] == mid[st]["cycles"]
+                           for g in got)
+            for r, g in enumerate(got):
+                assert dev.type != "cuda" or g["mid"]["launches_10_cycles"] \
+                    == {k: 10 for k in WHEEL_PER_CYCLE}, (world, r)
+            rec[f"world{world}"] = {
+                "backend": backend, "ranks_on": str(dev),
+                "wall_s": r0["wall_s"], "cells": sorted(r0["cells"]),
+                "n_1e5": {k: v for k, v in mid.items() if k != "checked"},
+                "checked_cycles": len(mid["checked"])}
+            log(f"  world {world} ({backend}, {world} rank(s) on {dev}): "
+                f"cells {', '.join(sorted(r0['cells']))} equal on every rank "
+                f"to the kernels-on single engine of phases 3 and 12 (itself "
+                f"equal to the plain one) in full state at each of their "
+                f"checks; n={n_mid} stages {mid['stage1']['cycles']} + "
+                f"{mid['stage2']['cycles']} cycles (phase 4: "
+                f"{conv['stage1']['cycles']} + {conv['stage2']['cycles']}) "
+                f"at {mid['stage1']['cycles_per_s']:.1f} / "
+                f"{mid['stage2']['cycles_per_s']:.1f} cycles/s; rank 0 "
+                f"{mid['profile']['device_ms_per_cycle']:.3f} ms device a "
+                f"cycle in {mid['profile']['launches_per_cycle']:.0f} "
+                f"launches; the exchange {mid['exchange']['ms']:.3f} ms, "
+                f"{mid['exchange']['bytes_gathered']:,} bytes gathered a "
+                f"cycle; each wheel kernel 10 launches in 10 cycles on every "
+                f"rank; {r0['wall_s']:.1f} s on rank 0")
+            log_top(mid["profile"])
+            if world == 1:
+                b = r0["big"]
+                assert b["digest"] == big_ref["digest"], (
+                    "the 1e6 sharded state differs from phase 5's")
+                assert b["counters"] == big_ref["counters"]
+                assert b["outputs"] == big_ref["outputs"]
+                rec["world1"]["n_1e6"] = {k: v for k, v in b.items()
+                                          if k != "digest"}
+                log(f"  world 1 n={n_big}: init storm {b['init_s']:.2f} s, "
+                    f"100 cycles at {b['cycles_per_s']:.1f} cycles/s; state "
+                    f"(every field's sha256), outputs and counters equal to "
+                    f"phase 5's engine; {b['profile']['device_ms_per_cycle']:.3f}"
+                    f" ms device a cycle in "
+                    f"{b['profile']['launches_per_cycle']:.0f} launches "
+                    f"(phase 5: {big_ref['device_ms_per_cycle']:.3f}); the "
+                    f"exchange {b['exchange']['ms']:.3f} ms, "
+                    f"{b['exchange']['bytes_gathered']:,} bytes")
+                log_top(b["profile"])
+    cards = torch.cuda.device_count()
+    if dev.type == "cuda" and cards >= 2:
+        world = 4 if cards >= 4 else 2
+        got = spawn(shard_job, world, "nccl", None, (world,), n_mid, 0,
+                    timeout=900)
+        for cell, digests in got[0][world]["cells"].items():
+            assert digests == want[cell], (world, cell)
+        mid = got[0][world]["mid"]
+        rec[f"nccl_world{world}"] = {k: v for k, v in mid.items()
+                                     if k != "checked"}
+        log(f"  NCCL world {world}, one card a rank: equal, "
+            f"{mid['stage1']['cycles_per_s']:.1f} cycles/s")
+    else:
+        log(f"  NCCL at world 2 or 4 not run: it needs one card a rank and "
+            f"this machine has {cards}")
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -2464,7 +2865,6 @@ def main() -> int:
     from repro_torch.kernels.wheel import launch_counts, reset_launches
 
     dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2509,28 +2909,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 3: engine parity, kernels vs plain versions, on the card")
-    from repro_torch.engine import L2Thresh, MeanMonitor
-
-    phase_parity(dev, 4096, 300)
     n3 = 4096
-    for label, prob in (("mean", MeanMonitor(tau=0.3)),
-                        ("l2", L2Thresh(tau=1.0, dim=2))):
-        phase_parity_churn(
-            dev, n3, label,
-            lambda wk, p=prob, lb=label: make_problem(
-                lb, p, n3, dev, seed=12, wheel_kernels=wk)[0],
-            lambda e, lb=label: e.apply_coalesced(
-                np.arange(n3), problem_data(lb, n3,
-                                            np.random.default_rng(5), 1)))
-    no_thr = ("dedup", "enqueue", "descent")
-    paths = {}
-    paths["majority_no_threshold"] = phase_parity_churn(
-        dev, n3, "majority without the threshold kernel",
-        lambda wk: make(n3, dev, seed=12, mu=0.45,
-                        wheel_kernels=no_thr if wk == "auto" else wk)[0],
-        lambda e: e.apply_coalesced(np.arange(n3),
-                                    votes_at(n3, 0.55,
-                                             np.random.default_rng(5))))
+    # the churn cells' kernels-on digests: phase 17's sharded engines must
+    # reproduce them
+    shard_want, paths = {}, {}
+    for cell, label in (("majority", "majority"), ("mean", "mean"),
+                        ("l2", "l2"), ("majority_no_threshold",
+                                       "majority without the threshold "
+                                       "kernel")):
+        counts, shard_want[cell] = phase_parity_churn(dev, cell, label)
+    paths["majority_no_threshold"] = counts
     reset_launches()
     phase_parity_l2_any_dim(dev, n3, 9)
     paths["l2_any_dim"] = launch_counts()
@@ -2541,7 +2929,12 @@ def main() -> int:
     log("phase 5: n = 1,000,000 majority peers")
     big, big_stats = phase_big(dev, N_BIG, 100)
     paths["majority"] = launch_counts()
+    # what phase 17's sharded engine at world 1 must reproduce
+    big_ref = {"digest": snapshot(big), "counters": big_counters(big),
+               "outputs": hashlib.sha256(big.outputs().tobytes()).hexdigest()}
     big_stats["profile"] = phase_profile(dev, big, 10)
+    big_ref["device_ms_per_cycle"] = \
+        big_stats["profile"]["device_ms_per_cycle"]
     del big
     torch.cuda.empty_cache()
 
@@ -2581,8 +2974,10 @@ def main() -> int:
         "card: the differential harness's four fault schedules, and the "
         "majority crash schedule without the threshold kernel")
     reset_launches()
-    for cell in FAULT_GRID:
-        phase_fault_parity(dev, fault_schedule(*cell), "auto")
+    for i, cell in enumerate(FAULT_GRID):
+        digests = phase_fault_parity(dev, fault_schedule(*cell), "auto")
+        if i == 0:
+            shard_want["armed"] = digests  # phase 17 reproduces it
     paths["armed"] = launch_counts()
     reset_launches()
     phase_fault_parity(dev, fault_schedule(*FAULT_GRID[0]),
@@ -2651,6 +3046,14 @@ def main() -> int:
     paths["serve"] = launch_counts()
     torch.cuda.empty_cache()
 
+    log(f"phase 17: the sharded engine: kernels-on ShardedTorchEngine vs "
+        f"phases 3 and 12's kernels-on single engines at n = {CHURN_N} and "
+        f"on the first fault schedule (worlds 1, 2, 4); "
+        f"phase 4 at n = {N_MID:,} on each world; phase 5 at n = {N_BIG:,} "
+        f"at world 1")
+    shard, paths["sharded"] = phase_sharded(dev, conv, big_ref, shard_want)
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -2665,7 +3068,8 @@ def main() -> int:
         "10; armed: phases 12-13, without the threshold kernel: phase 12's "
         "last schedule; batched: phase 15's sweep and B = 4 at 1e6 (one "
         "launch of each wheel kernel a batched cycle, as the single "
-        "engine's); serve: phase 16): " + json.dumps(paths))
+        "engine's); serve: phase 16; sharded: phase 17's ranks, summed): "
+        + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
         table.append({"name": name, "route": "cuda", "source": src,
@@ -2674,8 +3078,8 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': serve})}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': serve, 'sharded': shard})}")
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

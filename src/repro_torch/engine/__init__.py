@@ -12,6 +12,7 @@ problems; Alg. 2 churn; the fault plane).
     oracle = make_engine("numpy", ring, votes, seed=0)  # host numpy
     sweep = make_engine("torch", rings, votes_Bn, seed=0, batch=B)
     results = sweep.run_until_converged(truths)   # B EngineResults
+    big = make_engine("torch", ring, votes, mesh=group)  # on every rank
 
 `make_engine("torch", ...)` builds a `TorchEngine` (engine.torch_backend)
 on CUDA unless ``device`` names another device; it raises when CUDA is
@@ -19,7 +20,9 @@ absent rather than falling back to the CPU. `make_engine("numpy", ...)`
 builds the host oracle `NumpyEngine` (engine.numpy_backend), which has no
 device. ``batch=B`` builds B independent trials (engine.batched): one
 engine on the device whose wheel kernels launch once a cycle for all B,
-or B host oracles.
+or B host oracles. ``mesh=`` (a `torch.distributed` process group, True
+for the default group, or its size) builds the sharded engine
+(engine.sharded), one rank a process, bit-identical to `TorchEngine`.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ BACKENDS = ("torch", "numpy")
 
 
 def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
-                batch: int = 0, **kwargs):
+                batch: int = 0, mesh=None, **kwargs):
     """Construct the port's engine over `ring` with per-peer `votes`.
 
     `backend` is ``"torch"`` or ``"numpy"``. For torch, ``device=None``
@@ -53,10 +56,32 @@ def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
     (per-trial seeds are seed + i) or a (B,) array, and the result runs B
     independent trials (`engine.batched`); ``faults=`` does not compose
     with it, as in the reference.
+
+    With ``mesh=`` (torch only: a `torch.distributed` `ProcessGroup`,
+    True for the default group, or an int equal to its size) the engine
+    is `engine.sharded.ShardedTorchEngine`: every rank of the group
+    builds it with the same arguments and holds its block of the peer
+    planes and wheel lanes. ``device=None`` then means ``cuda:<rank>``
+    when the node has a card for each rank, else the current CUDA
+    device; the group's backend carries the collectives.
     """
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown engine backend {backend!r}; want one of {BACKENDS}")
+    if mesh is not None:
+        if backend != "torch":
+            raise ValueError("mesh= sharding needs backend='torch'")
+        if batch:
+            raise NotImplementedError(
+                "batch= and mesh= do not compose (trials of the sharded "
+                "engine are later work, as in the reference)")
+        from .sharded import ShardedTorchEngine, as_engine_group
+
+        group = as_engine_group(mesh)
+        if device is None:
+            device = _rank_device(group)
+        return ShardedTorchEngine(ring, votes, seed=seed, mesh=group,
+                                  device=device, **kwargs)
     if batch:
         if kwargs.get("faults") is not None:
             raise NotImplementedError(
@@ -77,6 +102,24 @@ def make_engine(backend: str, ring, votes: np.ndarray, seed=0, device=None,
     return TorchEngine(ring, votes, seed=seed, device=device, **kwargs)
 
 
+def _rank_device(group):
+    """``cuda:<local rank>`` when the node has a card for each rank of
+    `group`, else the current CUDA device; raises without CUDA, as every
+    entry point of the port."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+
+    resolve_device(None)
+    if torch.cuda.device_count() >= dist.get_world_size(group):
+        rank = dist.get_rank(group)
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def __getattr__(name):
     # the engine module imports the kernels, whose plain versions import
     # this package's protocol: load it on first use, not at import
@@ -92,11 +135,16 @@ def __getattr__(name):
         from . import batched
 
         return getattr(batched, name)
+    if name == "ShardedTorchEngine":
+        from .sharded import ShardedTorchEngine
+
+        return ShardedTorchEngine
     raise AttributeError(name)
 
 
 __all__ = ["BACKENDS", "BatchedNumpyEngine", "BatchedTorchEngine",
            "DeviceState", "EngineResult", "FaultConfig",
            "L2Thresh", "MAJORITY", "Majority", "MajorityEngine",
-           "MeanMonitor", "NumpyEngine", "PROBLEMS", "ThresholdProblem",
-           "TorchEngine", "coalesced_update", "get_problem", "make_engine"]
+           "MeanMonitor", "NumpyEngine", "PROBLEMS", "ShardedTorchEngine",
+           "ThresholdProblem", "TorchEngine", "coalesced_update",
+           "get_problem", "make_engine"]

@@ -57,7 +57,10 @@ def state_to_numpy(state: DeviceState) -> Dict[str, np.ndarray]:
     """Host copy of `state` in the reference's dtypes."""
     out = {}
     for k in DeviceState._fields:
-        a = getattr(state, k).detach().cpu().numpy()
+        t = getattr(state, k).detach()
+        # a copy, never a view of the live tensor (on the CPU, .numpy()
+        # alone shares its memory)
+        a = t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
         if k in U32_FIELDS:
             if a.size and (a.min() < 0 or a.max() > M32):
                 raise ValueError(f"{k} holds a value outside 32 bits")

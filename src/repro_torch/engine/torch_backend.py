@@ -241,12 +241,24 @@ def trial_state(st: DeviceState, b: int, batch: int) -> DeviceState:
 
 
 class PeerPlane:
-    """Access layer for the O(n) per-peer planes (`x`, `inbox`, `out`)
-    and the owner-lane boundary of the wheel — the single-device form
-    of the reference's `PeerPlane`: global row indices are tensor
-    indices and the lane exchange is the identity. Scatters drop rows
-    whose index is the sentinel (`pad` for peers, `pad * 3` for links)
-    into the storage's extra row."""
+    """Access layer for the partitioned planes — the per-peer and
+    per-link blocks (`x`, `inbox`, `out`, `heard`, `probed`), the
+    occupancy and convergence reductions over them — and the owner-lane
+    boundary of the wheel: the single-device form of the reference's
+    `PeerPlane`. Every access the engine makes to those blocks goes
+    through it; the replicated ring tables (`addrs`, `prev`, `pos`,
+    `dead`) are read directly.
+
+    Index contract: `idx` arguments are GLOBAL row indices (peer rows for
+    `*_peer`, flat ``peer * 3 + dir`` links for `*_link`); scatters drop
+    rows whose index is the sentinel (`pad` for peers, `pad * 3` for
+    links) into the storage's extra row. Here global indices are tensor
+    indices, every reduction is local and the exchange is the identity;
+    `engine.sharded.ShardedPlane` holds one contiguous block per rank,
+    and the same methods become local index translation plus the
+    collectives named in each."""
+
+    lane_base = 0  # global lane of the plane's first lane
 
     def __init__(self, eng: "TorchEngine"):
         self.eng = eng
@@ -257,20 +269,69 @@ class PeerPlane:
     def take_link(self, arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return arr[idx]
 
-    def put_peer(self, name: str, idx: torch.Tensor, val: torch.Tensor) -> None:
-        self.eng._store[name].index_put_((idx,), val)
+    def take_peer_rep(self, arr: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+        """Peer rows at global `idx` with a result equal on every rank
+        (the churn movers, owned by any rank); event path only."""
+        return arr[idx]
+
+    def put_peer(self, name: str, idx: torch.Tensor, val) -> None:
+        store = self.eng._store[name]
+        store.index_put_((idx,), torch.as_tensor(val, dtype=store.dtype,
+                                                 device=store.device))
 
     put_link = put_peer
 
+    def link_ids(self, flat: torch.Tensor):
+        """Link ids for the accept election, and the election's plane
+        size: (ids in [0, nl), nl)."""
+        return flat, self.eng.rows * NDIR
+
+    def local(self, arr: torch.Tensor) -> torch.Tensor:
+        """This plane's rows of a replicated per-peer table (`dead`, the
+        ring tables, a full-width event mask)."""
+        return arr
+
     def occ(self) -> torch.Tensor:
+        """Occupancy of the plane's rows (global row < n)."""
         e = self.eng
         if e.batch == 1:
             return torch.arange(e.pad, device=e.device) < e.n
         return torch.arange(e.rows, device=e.device) % e.pad < e.n
 
-    def exchange(self, arr: torch.Tensor) -> torch.Tensor:
-        """Lane boundary exchange (identity on one device)."""
+    def all_true(self, ok: torch.Tensor) -> torch.Tensor:
+        """(B,) AND of a per-row predicate over each trial's rows."""
+        return ok.view(self.eng.batch, -1).all(1)
+
+    def all_max(self, v: torch.Tensor) -> int:
+        """Host int: the largest entry of `v` over every rank."""
+        return int(v.max())
+
+    def total(self, v: torch.Tensor) -> int:
+        """Host int: the sum of a counter over every rank's lanes."""
+        return int(v.sum())
+
+    def full(self, arr: torch.Tensor) -> torch.Tensor:
+        """The global table of a partitioned block (rows of every rank,
+        in row order)."""
         return arr
+
+    def exchange(self, *blocks):
+        """Lane boundary exchange: each block (rows (L_loc, R, C) uint32
+        values in int64, live (L_loc, R) bool, alert (L_loc, R) bool or
+        None) becomes the GLOBAL lane-major (L, R, ...) block, equal on
+        every rank. Identity on one device."""
+        return blocks
+
+    def shift_rows(self, arr: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        """A partitioned block gathered by the GLOBAL source map `src`
+        (join/leave row recompaction)."""
+        return arr[src]
+
+    def gather_events(self, *arrs):
+        """The rows of an event in GLOBAL row order (the delay hash and
+        the append ranks run over the whole event)."""
+        return arrs
 
 
 class TorchEngine:
@@ -278,6 +339,7 @@ class TorchEngine:
     `engine.base`)."""
 
     backend = "torch"
+    n_shards = 1  # ranks holding a block of the planes and lanes
 
     def __init__(self, ring, votes: Optional[np.ndarray], seed: int = 0,
                  capacity_per_peer: int = 6, work_budget: int = 0,
@@ -347,7 +409,7 @@ class TorchEngine:
         if self.pad < self.n:
             raise ValueError(f"pad_to={pad_to} below ring size {self.n}")
         self._size_tables()
-        self._plane = PeerPlane(self)
+        self._plane = self._make_plane()
         if _state is not None:
             self._adopt(_state)
             return
@@ -378,10 +440,13 @@ class TorchEngine:
         `_size_tables` formulas verbatim."""
         self.lanes = min(MAX_LANES, self.pad & -self.pad)
         self.lane_rows = self.pad // self.lanes
-        # with a trial axis: B pad peer rows and B L lanes in all
+        # with a trial axis: B pad peer rows and B L lanes in all; of
+        # those, each of the n_shards ranks holds one contiguous block
         self.rows = self.batch * self.pad
         self.nlanes = self.batch * self.lanes
-        self._lane_ar = torch.arange(self.nlanes, device=self.device)
+        self.loc_rows = self.rows // self.n_shards
+        self.loc_lanes = self.nlanes // self.n_shards
+        self._lane_ar = torch.arange(self.loc_lanes, device=self.device)
         L = self.lanes
         b_req = self._wb_req or max(512, self.pad // 8)
         self.lane_budget = max(1, b_req // L)
@@ -431,12 +496,15 @@ class TorchEngine:
             probed=z(pd * NDIR), lost=z(L),
         )
 
+    def _make_plane(self) -> PeerPlane:
+        return PeerPlane(self)
+
     def _adopt(self, st: DeviceState) -> None:
         """Take `st` as this engine's state: copy it to the engine's device
         into storage with one sentinel row past each scattered plane (a
         None arena is allocated there empty), and mirror the host-side
         scalars."""
-        dev, rows, nl = self.device, self.rows, self.nlanes
+        dev, rows, nl = self.device, self.loc_rows, self.loc_lanes
         want = {"x": (rows, self.dw), "inbox": (rows * NDIR, self.pw + 1),
                 "out": (rows, NDIR * self.pw + 1),
                 "wheel": (nl, SLOTS, self.lane_width, self.roww),
@@ -459,8 +527,9 @@ class TorchEngine:
                 self._store[k] = buf
                 fields[k] = buf[:-1].view(want[k])
                 continue
-            v = v.to(dev)
-            if k in ("inbox", "out", "wheel", "awheel", "heard"):
+            if k in ("x", "inbox", "out", "wheel", "awheel", "heard",
+                     "probed"):
+                # copied from wherever `st` lies straight into the storage
                 rows = v.reshape(-1, v.shape[-1] if v.dim() > 1 else 1)
                 buf = torch.zeros((rows.shape[0] + 1, rows.shape[1]),
                                   dtype=v.dtype, device=dev)
@@ -468,7 +537,7 @@ class TorchEngine:
                 self._store[k] = buf
                 v = buf[:-1].view(v.shape)
             else:
-                v = v.clone()
+                v = v.to(dev, copy=True)
             fields[k] = v
         self._st = DeviceState(**fields)
         # host mirrors: each trial's t; the event counter (equal in every
@@ -532,12 +601,18 @@ class TorchEngine:
     def _append_rows(self, name: str, cnt: torch.Tensor, rows: torch.Tensor,
                      lane: torch.Tensor, slot: torch.Tensor,
                      live: torch.Tensor, cap: int):
-        """Append `rows` (m, roww) to the arenas of wheel `name` at
+        """Append the GLOBAL row batch `rows` (m, roww) to the local lane
+        arenas of wheel `name` (lanes from `plane.lane_base` on; a row
+        of another rank's lane is not this rank's to append) at
         cnt[lane, slot] + stable rank within the (lane, slot) group;
-        overflow past `cap` drops. Updates `cnt` in place and returns
-        (attempted (L,), dropped (L,)) int32."""
+        overflow past `cap` drops. A group lies in one lane, so ranking
+        only the owned rows gives the ranks of the whole batch. Updates
+        `cnt` in place and returns (attempted (L,), dropped (L,)) int32."""
         L = cnt.shape[0]
         width = self.lane_width if name == "wheel" else self.lane_alert_w
+        if self.n_shards > 1:
+            lane = lane - self._plane.lane_base
+            live = live & (lane >= 0) & (lane < L)
         rank, counts = self._group_ranks(lane * SLOTS + slot, live, L * SLOTS)
         lsafe = torch.where(live, lane, 0)
         off = cnt[lsafe, slot] + rank
@@ -571,8 +646,8 @@ class TorchEngine:
         """Full-width threshold rules of the event react: the
         `majority_step` planes for a majority engine without the
         threshold kernel, `_rules` otherwise. Returns (viol (pd,3),
-        pay (pd,3,P))."""
-        st, pd, pw = self._st, self.rows, self.pw
+        pay (pd,3,P)) over the plane's rows."""
+        st, pd, pw = self._st, self.loc_rows, self.pw
         if self._majority_react:
             plane = lambda a: a.reshape(pd, NDIR).contiguous()
             viol, _, po, pt = self._majority(
@@ -586,15 +661,17 @@ class TorchEngine:
 
     def _outputs_match(self, truth) -> torch.Tensor:
         """The threshold convergence predicate per trial, on device ((B,)
-        bool); `truth` an int, or a (B,) tensor of each trial's."""
-        st, B = self._st, self.batch
-        out = knowledge_outputs(self.problem, st.inbox, st.x, self.rows).to(I32)
+        bool); `truth` an int, or a (B,) tensor of each trial's. A test
+        of the plane's rows, then `plane.all_true`."""
+        st, pl = self._st, self._plane
+        out = knowledge_outputs(self.problem, st.inbox, st.x,
+                                self.loc_rows).to(I32)
         if isinstance(truth, torch.Tensor):
             truth = truth.repeat_interleave(self.pad)
-        ok = self.problem.converged(torch, out, truth) | ~self._plane.occ()
+        ok = self.problem.converged(torch, out, truth) | ~pl.occ()
         if self._faults is not None:
-            ok = ok | st.dead  # crashed, unevicted peers have no say
-        return ok.view(B, self.pad).all(1)
+            ok = ok | pl.local(st.dead)  # crashed, unevicted: no say
+        return pl.all_true(ok)
 
     # -- event path (full-width react, ranked append, hashed delays) --------
 
@@ -602,7 +679,9 @@ class TorchEngine:
                         alert: bool = False):
         """Append the `cand` rows of an event to the wheel of each DEST
         owner's lane, due after a per-row hashed delay; ALERT rows go to
-        the side-wheel, due immediately. On a trial axis the rows are B
+        the side-wheel, due immediately. The rows are the GLOBAL event
+        block (a full-width react gathers it first), of which each rank
+        appends the rows its lanes own. On a trial axis the rows are B
         equal trial-major blocks, each hashed by its own index within the
         block, its trial's t and salt."""
         st, B = self._st, self.batch
@@ -632,10 +711,12 @@ class TorchEngine:
 
     def _react(self, touched: torch.Tensor) -> None:
         """Threshold test() + Send(v) for all `touched` peers (full-width
-        event path: initialization and data changes)."""
-        st, pd, pw = self._st, self.rows, self.pw
+        event path: initialization and data changes). `touched` covers
+        the plane's rows; the sends are gathered into global row order
+        (`plane.gather_events`) for the append."""
+        st, pd, pw, pl = self._st, self.loc_rows, self.pw, self._plane
         if self._faults is not None:
-            touched = touched & ~st.dead  # the dead never send
+            touched = touched & ~pl.local(st.dead)  # the dead never send
         viol, pay = self._test_phase()
         eff = viol & touched[:, None]
         seq = st.out[:, NDIR * pw] + eff.any(1).to(I32)
@@ -643,12 +724,13 @@ class TorchEngine:
         st.out.copy_(self._pack_out(new_pay, seq))
         dirs = torch.arange(NDIR, device=self.device).expand(pd, NDIR)
         bc = lambda a: a[:, None].expand(pd, NDIR)
+        tab = lambda a: bc(pl.local(a))
         valid, origin, dest, edge, has_edge = P.send_fields(
-            bc(st.pos), dirs, bc(st.addrs), bc(st.prev), self.d)
-        self._enqueue_events(
+            tab(st.pos), dirs, tab(st.addrs), tab(st.prev), self.d)
+        self._enqueue_events(*pl.gather_events(
             (eff & valid).reshape(-1), origin.reshape(-1), dest.reshape(-1),
             edge.reshape(-1), has_edge.reshape(-1), pay.reshape(-1, pw),
-            bc(seq).reshape(-1))
+            bc(seq).reshape(-1)))
 
     # -- churn (Alg. 2) ------------------------------------------------------
 
@@ -658,14 +740,17 @@ class TorchEngine:
 
     def _shift_peer_rows(self, src: torch.Tensor) -> None:
         """Gather-shift every peer-indexed table by the source map `src`
-        (join/leave row recompaction), in place."""
-        st = self._st
+        (join/leave row recompaction), in place: the replicated tables by
+        a gather, the partitioned blocks through `plane.shift_rows`."""
+        st, pl = self._st, self._plane
         link_src = self._links(src).reshape(-1)
-        for name, idx in (("x", src), ("out", src), ("inbox", link_src),
-                          ("addrs", src), ("dead", src), ("heard", link_src),
-                          ("probed", link_src)):
+        for name in ("addrs", "dead"):
             a = getattr(st, name)
-            a.copy_(a[idx])
+            a.copy_(a[src])
+        for name, idx in (("x", src), ("out", src), ("inbox", link_src),
+                          ("heard", link_src), ("probed", link_src)):
+            a = getattr(st, name)
+            a.copy_(pl.shift_rows(a, idx))
 
     def _ring_views(self) -> None:
         """Recompute prev/pos from the padded address table (vacant rows
@@ -679,18 +764,19 @@ class TorchEngine:
         """Insert a peer row at `k` (gather-shift of the sorted prefix +
         one row write; `data` is the joiner's (D,) data), then run the
         churn tail."""
-        st, dev = self._st, self.device
+        st, dev, pl = self._st, self.device, self._plane
         idx = torch.arange(self.pad, device=dev)
         self._shift_peer_rows(torch.where(idx <= k, idx, idx - 1))
+        kt = torch.tensor([k], device=dev)
         lk = k * NDIR + torch.arange(NDIR, device=dev)
         st.addrs[k] = addr
-        st.x[k] = torch.from_numpy(data.astype(np.int32)).to(dev)
-        st.inbox[lk] = 0
-        st.out[k] = 0
         st.dead[k] = False
+        pl.put_peer("x", kt, torch.from_numpy(data.astype(np.int32)))
+        pl.put_link("inbox", lk, 0)
+        pl.put_peer("out", kt, 0)
         # the joiner starts with fresh detector stamps
-        st.heard[lk] = self._t
-        st.probed[lk] = self._t
+        pl.put_link("heard", lk, st.t)
+        pl.put_link("probed", lk, st.t)
         st.n_live.add_(1)
         self.n += 1
         self._ring_views()
@@ -701,7 +787,7 @@ class TorchEngine:
     def _leave(self, k: int) -> None:
         """Delete peer row `k` (gather-shift left + sentinel the vacated
         row), then run the churn tail."""
-        st, dev, nb = self._st, self.device, self.n
+        st, dev, nb, pl = self._st, self.device, self.n, self._plane
         a_im1 = st.addrs[k].clone()
         a_im2 = st.addrs[(k - 1) % nb].clone()
         a_i = st.addrs[(k + 1) % nb].clone()
@@ -709,14 +795,14 @@ class TorchEngine:
         self._shift_peer_rows(torch.clamp(torch.where(idx < k, idx, idx + 1),
                                           max=self.pad - 1))
         last = nb - 1  # the vacated row after the shift
+        lt = torch.tensor([last], device=dev)
         ll = last * NDIR + torch.arange(NDIR, device=dev)
         st.addrs[last] = NO_ADDR
-        st.x[last] = 0
-        st.inbox[ll] = 0
-        st.out[last] = 0
         st.dead[last] = False
-        st.heard[ll] = 0
-        st.probed[ll] = 0
+        pl.put_peer("x", lt, 0)
+        pl.put_peer("out", lt, 0)
+        for name in ("inbox", "heard", "probed"):
+            pl.put_link(name, ll, 0)
         st.n_live.sub_(1)
         self.n = last
         self._ring_views()
@@ -733,10 +819,12 @@ class TorchEngine:
         collected (first `mig_w` per lane) and re-appended to their owner
         lane. Removed rows are retired; migrated rows re-enter through
         `enq`; a migration overflow counts in both `enq` and `dropped`.
+        The sweep is lane-local; the migration blocks ride the lane
+        exchange (`plane.exchange`) to their owner lanes.
         """
-        st, dev = self._st, self.device
-        L, roww, MW = self.lanes, self.roww, self.mig_w
-        lanes = torch.arange(L, device=dev)
+        st, dev, pl = self._st, self.device, self._plane
+        L, roww, MW = self.loc_lanes, self.roww, self.mig_w
+        lanes = torch.arange(L, device=dev) + pl.lane_base
 
         def sweep(buf, cnt, fence: bool):
             width = buf.shape[2]
@@ -769,15 +857,18 @@ class TorchEngine:
             removed = cnt.sum(1, dtype=I32) - nc.sum(1, dtype=I32)
             buf.copy_(kept)
             cnt.copy_(nc)
-            return mig.reshape(L * MW, roww), mok.reshape(-1), removed, lost
+            return mig, mok, removed, lost
 
         def relane(name, cnt, cap, mig, mok):
+            mig, mok = mig.reshape(-1, roww), mok.reshape(-1)
             lane = self._lane_of(mig[:, DEST])
             slot = _i32(mig[:, self._DT]).long() % SLOTS
             return self._append_rows(name, cnt, mig, lane, slot, mok, cap)
 
         mig_d, mok_d, rem_d, lost_d = sweep(st.wheel, st.wcnt, True)
         mig_a, mok_a, rem_a, lost_a = sweep(st.awheel, st.acnt, False)
+        (mig_d, mok_d, _), (mig_a, mok_a, _) = pl.exchange(
+            (mig_d, mok_d, None), (mig_a, mok_a, None))
         att_d, dro_d = relane("wheel", st.wcnt, self.lane_cap, mig_d, mok_d)
         att_a, dro_a = relane("awheel", st.acnt, self.lane_alert_w, mig_a,
                               mok_a)
@@ -796,6 +887,7 @@ class TorchEngine:
            ALERT zeroes its link and forces Send.
         """
         st, pd, pw, d, dev = self._st, self.pad, self.pw, self.d, self.device
+        pl = self._plane
         pos_fix, pos_var = P.change_positions(a_im2, a_im1, a_i, d)
         self._fence_and_migrate(pos_fix, pos_var)
 
@@ -803,21 +895,18 @@ class TorchEngine:
         own = self._owner_of(cp)
         mover_rows = torch.where(st.pos[own] == cp, own, pd)
         mlinks = self._links(mover_rows).reshape(-1)
-        self._plane.put_link("inbox", torch.clamp(mlinks, max=pd * NDIR),
-                             torch.zeros((2 * NDIR, pw + 1), dtype=I32,
-                                         device=dev))
+        pl.put_link("inbox", torch.clamp(mlinks, max=pd * NDIR), 0)
         mv = mover_rows < pd
         mp = torch.where(mv, mover_rows, 0)
         if self._faults is not None:
             mv = mv & ~st.dead[mp]  # crashed peers are silent: no sends
         # a mover's X_in is now zero, so its knowledge is K = [x, 1] (rows
         # with ~mv only ever reach the sentinel rows)
-        k = torch.cat([st.x[mp], torch.ones((2, 1), dtype=I32, device=dev)],
-                      dim=-1)
+        k = torch.cat([pl.take_peer_rep(st.x, mp),
+                       torch.ones((2, 1), dtype=I32, device=dev)], dim=-1)
         pay = k[:, None, :].expand(2, NDIR, pw)
-        seq2 = st.out[mp][:, NDIR * pw] + 1
-        self._plane.put_peer("out", torch.where(mv, mp, pd),
-                             self._pack_out(pay, seq2))
+        seq2 = pl.take_peer_rep(st.out, mp)[:, NDIR * pw] + 1
+        pl.put_peer("out", torch.where(mv, mp, pd), self._pack_out(pay, seq2))
         dirs2 = torch.arange(NDIR, device=dev).expand(2, NDIR)
         bc2 = lambda a: a[:, None].expand(2, NDIR)
         valid, origin, dest, edge, has_edge = P.send_fields(
@@ -835,9 +924,8 @@ class TorchEngine:
             valid = valid & ~st.dead[aown]  # the dead emit no ALERTs
             # the movers' links are fresh news: no aging the new occupants
             # on stamps carried over from the old ones
-            self._plane.put_link(
-                "heard", torch.where(mv.repeat_interleave(NDIR), mlinks,
-                                     pd * NDIR), st.t)
+            pl.put_link("heard", torch.where(mv.repeat_interleave(NDIR),
+                                             mlinks, pd * NDIR), st.t)
         zero = torch.zeros(6, dtype=I64, device=dev)
         self._enqueue_events(valid, origin, dest, edge, has_edge,
                              zero[:, None].expand(6, pw), zero, alert=True)
@@ -848,10 +936,12 @@ class TorchEngine:
         wheel row is re-placed in the lane owning its DEST under the new
         tables (stable (lane, slot, position) order, capped like an
         append; a truncated row counts as dropped). Per-lane counters
-        collapse into lane 0."""
-        from repro_torch.engine.convert import state_from_numpy, state_to_numpy
+        collapse into lane 0. A sharded engine gathers the state to each
+        rank's host, re-pads it there the same way on every rank, and
+        each rank copies only its blocks to its device."""
+        from repro_torch.engine.convert import state_from_numpy
 
-        host = state_to_numpy(self._st)
+        host = self.global_state()
         old_pad = self.pad
         self.pad = _next_pow2(need_n + max(8, need_n // 8))
         self._size_tables()
@@ -910,7 +1000,16 @@ class TorchEngine:
                    ret=lane0(host["ret"]), dead=pad_rows(host["dead"]),
                    heard=links(host["heard"]), probed=links(host["probed"]),
                    lost=lane0(host["lost"]))
-        self._adopt(state_from_numpy(new, device=self.device))
+        # built on the host: `_adopt` copies (a sharded engine: its
+        # blocks of) it to the device
+        self._adopt(state_from_numpy(new))
+
+    def global_state(self) -> dict:
+        """The whole state as host numpy arrays in the reference's layout
+        and dtypes (`convert.state_to_numpy`)."""
+        from repro_torch.engine.convert import state_to_numpy
+
+        return state_to_numpy(self._st)
 
     # -- the cycle -----------------------------------------------------------
 
@@ -944,7 +1043,7 @@ class TorchEngine:
         On a trial axis, `active` ((B,) bool on the host, None: all)
         selects the trials that step; the others are frozen bit for bit."""
         st, pl, dev, f = self._st, self._plane, self.device, self._faults
-        pd, d, L, pw = self.rows, self.d, self.nlanes, self.pw
+        pd, d, L, pw = self.rows, self.d, self.loc_lanes, self.pw
         Bl, Al = self.lane_budget, self.lane_alert_w
         Wl, cap, roww = self.lane_width, self.lane_cap, self.roww
         B, lane_ar = self.batch, self._lane_ar
@@ -981,7 +1080,7 @@ class TorchEngine:
         # past every lane's live alerts go, so no row changes its order
         # and the bits are the full window's; the fault draws key on the
         # full window's index (`wfull` below)
-        Aw = Al if f is None else int(n_alert.max())
+        Aw = Al if f is None else pl.all_max(n_alert)
         WWl = Aw + Bl
         WW = L * WWl
         w = torch.cat([st.awheel[at(s) + (slice(None, Aw),)], sbuf[:, :Bl]],
@@ -1019,7 +1118,9 @@ class TorchEngine:
         if f is not None:
             lost_m = live & st.dead[owner]
             is_data_row = ~is_alert & ~w_probe
-            wfull = (torch.arange(L, device=dev)[:, None] * self.window_l
+            # (the global lane index, so every world size draws alike)
+            wfull = ((torch.arange(L, device=dev)[:, None] + pl.lane_base)
+                     * self.window_l
                      + torch.where(is_alert_l, li, li - Aw + Al)).reshape(WW)
             if f.p_drop > 0.0:
                 lost_m = lost_m | (live & is_data_row & (
@@ -1094,9 +1195,11 @@ class TorchEngine:
         acc_a = acc & is_alert
         sent = pd * NDIR  # scatter sentinel
         link_seq = pl.take_link(st.inbox, flat)[:, pw].contiguous()
+        # the election runs on the plane's own link ids (local on a rank)
+        lflat, nl = pl.link_ids(flat)
         if f is None:
             winner, loser, fresh, alert_write, is_rep, aforce = self._dedup(
-                flat, acc_d, acc_a, w_seq, link_seq, sent)
+                lflat, acc_d, acc_a, w_seq, link_seq, nl)
         else:
             acc_p = acc & w_probe
             acc_d = acc_d & ~w_probe
@@ -1104,8 +1207,8 @@ class TorchEngine:
             # life on its link; t is monotone, so max == set
             pl.put_link("heard", torch.where(acc, flat, sent), st.t)
             (winner, loser, fresh, alert_write, is_rep, aforce,
-             pforce) = due_dedup_reference(flat, acc_d, acc_a, w_seq,
-                                           link_seq, sent, acc_p=acc_p)
+             pforce) = due_dedup_reference(lflat, acc_d, acc_a, w_seq,
+                                           link_seq, nl, acc_p=acc_p)
         # one scatter: a fresh data write, or an alert zeroing a link with
         # no data winner (alert rows on one link all write zeros)
         data_idx = torch.where(fresh | alert_write, flat, sent)
@@ -1233,11 +1336,21 @@ class TorchEngine:
                              ordinal.reshape(-1), self._cycle_perm(),
                              st.t.reshape(-1), self._DT)
 
-        # ---- boundary exchange (identity) + ranked owner-lane appends
-        grows = pl.exchange(staged)
+        # ---- boundary exchange + ranked owner-lane appends: the one step
+        # of the cycle that crosses lanes. The staged blocks (and an armed
+        # engine's probe block) become the global lane-major order on
+        # every rank (the identity on one device), so the ranks within
+        # each (lane, slot) group are the same at every world size
+        blocks = [(staged.view(L, 4 * WWl, roww), blk_mask, blk_alert)]
+        if f is not None:
+            blocks.append(self._probes())
+        blocks = pl.exchange(*blocks)
+        grows, glive, galert = blocks[0]
+        Lg = grows.shape[0]  # lanes of every rank
+        grows = grows.reshape(-1, roww)
+        glive, galert = glive.reshape(-1), galert.reshape(-1)
         glane = self._lane_of(grows[:, DEST])
         gslot = _i32(grows[:, self._DT]).long() % SLOTS
-        glive, galert = blk_mask.reshape(-1), blk_alert.reshape(-1)
         att_d, dro_d = self._append_rows("wheel", st.wcnt, grows, glane, gslot,
                                          glive & ~galert, cap)
         # ALERT appends: only the first Aw re-entry rows of each lane's
@@ -1245,10 +1358,15 @@ class TorchEngine:
         # each lane's block), so ranking those sub-blocks in the same
         # relative order gives the reference's bits; with no alert live
         # it writes only the sentinel row — the reference's lax.cond no-op
-        ab = [a.reshape(L, 4 * WWl, *a.shape[1:])[:, :Aw]
+        ab = [a.reshape(Lg, 4 * WWl, *a.shape[1:])[:, :Aw]
               for a in (grows, glane, gslot, glive & galert)]
         if f is not None:
-            ab = [torch.cat([a, b], dim=1) for a, b in zip(ab, self._probes())]
+            prows, plive, _ = blocks[1]
+            p_lane = self._lane_of(prows[:, :, DEST].reshape(-1))
+            p_lane = p_lane.reshape(Lg, -1)
+            pb = (prows, p_lane,
+                  torch.full_like(p_lane, (self._t + 1) % SLOTS), plive)
+            ab = [torch.cat([a, b], dim=1) for a, b in zip(ab, pb)]
         att_a, dro_a = self._append_rows(
             "awheel", st.acnt, *[a.reshape(-1, *a.shape[2:]) for a in ab], Al)
 
@@ -1281,16 +1399,15 @@ class TorchEngine:
         of a live peer that is structurally valid and silent past
         `suspect_after` (and not probed within that window) emits an
         empty-payload PROBE row, due next cycle on the side-wheel. Stamps
-        `probed`; returns the (L, lane_rows * 3) lane-major block as
-        (rows, lane, slot, live), for the ALERT append."""
+        `probed`; returns the plane's (L, lane_rows * 3) lane-major block
+        as an exchange block (rows, live, None)."""
         st, f, t, dev = self._st, self._faults, self._t, self.device
-        pd, L = self.pad, self.lanes
-        bc = lambda a: a[:, None].expand(pd, NDIR)
+        pd, L, pl = self.loc_rows, self.loc_lanes, self._plane
+        bc = lambda a: pl.local(a)[:, None].expand(pd, NDIR)
         valid, org, dst, edge, he = P.send_fields(
             bc(st.pos), torch.arange(NDIR, device=dev).expand(pd, NDIR),
             bc(st.addrs), bc(st.prev), self.d)
-        mon = (valid & (torch.arange(pd, device=dev) < self.n)[:, None]
-               & ~st.dead[:, None])
+        mon = valid & ~bc(st.dead) & pl.occ()[:, None]
         want, _ = P.suspicion_rules(st.heard, st.probed, t, f.suspect_after,
                                     f.evict_after)
         emit = want.reshape(pd, NDIR) & mon
@@ -1300,9 +1417,7 @@ class TorchEngine:
                            + [zero] * self.pw
                            + [zero, torch.full_like(org, (t + 1) & M32)],
                            dim=2).reshape(L, -1, self.roww)
-        lane = self._lane_of(rows[:, :, DEST].reshape(-1)).reshape(L, -1)
-        return rows, lane, torch.full_like(lane, (t + 1) % SLOTS), emit.reshape(
-            L, -1)
+        return rows, emit.reshape(L, -1), None
 
     # -- public API ----------------------------------------------------------
 
@@ -1322,28 +1437,29 @@ class TorchEngine:
 
     @property
     def messages_sent(self) -> int:
-        return int(self._st.messages_sent.sum())
+        return self._plane.total(self._st.messages_sent)
 
     @property
     def in_flight(self) -> int:
-        return int(self._st.wcnt.sum()) + int(self._st.acnt.sum())
+        return (self._plane.total(self._st.wcnt)
+                + self._plane.total(self._st.acnt))
 
     @property
     def dropped(self) -> int:
         """Messages lost to arena overflow; a run with dropped > 0 is
         invalid (raise capacity_per_peer)."""
-        return int(self._st.dropped.sum())
+        return self._plane.total(self._st.dropped)
 
     @property
     def deferred(self) -> int:
         """Deliveries pushed past their due time (each row counted once)."""
-        return int(self._st.deferred.sum())
+        return self._plane.total(self._st.deferred)
 
     @property
     def lost_to_fault(self) -> int:
         """Messages destroyed by the injected fault plane (crashed owners
         and `FaultConfig.p_drop`), itemized apart from `dropped`."""
-        return int(self._st.lost.sum())
+        return self._plane.total(self._st.lost)
 
     @property
     def evictions(self):
@@ -1356,7 +1472,8 @@ class TorchEngine:
 
     def last_heard(self) -> np.ndarray:
         """(n,) cycle each peer's links last carried inbound traffic."""
-        return self._st.heard.reshape(-1, NDIR)[: self.n].amax(1).cpu().numpy()
+        heard = self._plane.full(self._st.heard)
+        return heard.reshape(-1, NDIR)[: self.n].amax(1).cpu().numpy()
 
     @property
     def deferral_rate(self) -> float:
@@ -1369,10 +1486,10 @@ class TorchEngine:
         is drained, still live, or accounted dropped. Raises
         AssertionError on violation; returns the figures."""
         self._one_trial("check_conservation")
-        st = self._st
-        enq, ret = int(st.enq.sum()), int(st.ret.sum())
+        st, total = self._st, self._plane.total
+        enq, ret = total(st.enq), total(st.ret)
         live = self.in_flight
-        dro, lost = int(st.dropped.sum()), int(st.lost.sum())
+        dro, lost = total(st.dropped), total(st.lost)
         if enq != ret + live + dro + lost:
             raise AssertionError(
                 f"wheel conservation violated: enqueued={enq} != "
@@ -1384,29 +1501,31 @@ class TorchEngine:
     def outputs(self) -> np.ndarray:
         self._one_trial("outputs")
         out = knowledge_outputs(self.problem, self._st.inbox, self._st.x,
-                                self.pad)
+                                self.loc_rows)
+        out = self._plane.full(out)
         return out[: self.n].cpu().numpy().astype(np.int64)
 
     def votes(self) -> np.ndarray:
         """(n,) scalar data (majority votes); (n, D) when D > 1."""
         self._one_trial("votes")
-        x = self._st.x[: self.n].cpu().numpy().astype(np.int64)
+        x = self.data()
         return x[:, 0] if self.dw == 1 else x
 
     def data(self) -> np.ndarray:
         """(n, D) quantized per-peer data plane."""
         self._one_trial("data")
-        return self._st.x[: self.n].cpu().numpy().astype(np.int64)
+        x = self._plane.full(self._st.x)
+        return x[: self.n].cpu().numpy().astype(np.int64)
 
     def set_votes(self, idx: np.ndarray, new_votes: np.ndarray) -> None:
         """Data-change upcall: set X_self on `idx` and re-run test()."""
         self._one_trial("set_votes")
         idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
         nd = self.problem.init_state(np.asarray(new_votes)).astype(np.int32)
-        self._st.x[idx_t] = torch.from_numpy(nd).to(self.device)
+        self._plane.put_peer("x", idx_t, torch.from_numpy(nd))
         touched = torch.zeros(self.pad, dtype=torch.bool, device=self.device)
         touched[idx_t] = True
-        self._react(touched)
+        self._react(self._plane.local(touched))
 
     def apply_coalesced(self, idx: np.ndarray, new_data: np.ndarray) -> int:
         """Serve-layer flush: one coalesced batch applied as one batched
@@ -1461,11 +1580,12 @@ class TorchEngine:
         st = self._st
         if bool(st.dead[idx]):
             raise ValueError(f"peer {idx} is already dead")
-        lk = idx * NDIR + torch.arange(NDIR, device=self.device)
+        pl, dev = self._plane, self.device
+        it = torch.tensor([idx], device=dev)
         st.dead[idx] = True
-        st.x[idx] = 0
-        st.inbox[lk] = 0
-        st.out[idx] = 0
+        pl.put_peer("x", it, 0)
+        pl.put_link("inbox", idx * NDIR + torch.arange(NDIR, device=dev), 0)
+        pl.put_peer("out", it, 0)
 
     def _stamp_churn_floor(self, ev, ring_after) -> None:
         """Record the synchronous `heard` refresh the reference simulator
@@ -1497,8 +1617,9 @@ class TorchEngine:
         t = self._t
         while self.n > 1:
             st = self._st
+            pl = self._plane
             heard = np.maximum(
-                st.heard.reshape(-1, NDIR)[: self.n].cpu().numpy(),
+                pl.full(st.heard).reshape(-1, NDIR)[: self.n].cpu().numpy(),
                 self._evict_floor)
             if self._heard_floor:
                 row_of = {int(a): i for i, a in enumerate(self.ring.addrs)}
@@ -1506,7 +1627,8 @@ class TorchEngine:
                     r = row_of.get(a)
                     if r is not None and heard[r, dch] < ts:
                         heard[r, dch] = ts
-            probed = st.probed.reshape(-1, NDIR)[: self.n].cpu().numpy()
+            probed = pl.full(st.probed).reshape(-1, NDIR)[: self.n]
+            probed = probed.cpu().numpy()
             dead = st.dead[: self.n].cpu().numpy()
             _, evict = P.suspicion_rules(heard.ravel(), probed.ravel(), t,
                                          f.suspect_after, f.evict_after)

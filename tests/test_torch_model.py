@@ -178,8 +178,9 @@ print(' '.join(mods))
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
     assert len(mods) >= 45
-    # the fault plane's host layer and numpy oracle, the batched trials
-    # and the serve layer among them
+    # the fault plane's host layer and numpy oracle, the batched trials,
+    # the serve layer and the sharded engine among them
     assert {f"repro_torch.{m}" for m in (
         "core.routing", "core.notify", "core.majority", "core.simulator",
-        "engine.numpy_backend", "engine.batched", "launch.serve")} <= mods
+        "engine.numpy_backend", "engine.batched", "launch.serve",
+        "engine.sharded", "launch.mesh")} <= mods
