@@ -80,7 +80,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      stepped until the detector evicted exactly them, then reconverged;
      and the same on ring seed 7, where the reference's detector also
      evicts a live neighbour of a crashed peer: every crashed peer must
-     go, the live ones evicted are reported;
+     go, the live ones evicted are reported. On seed 41 an
+     `EngineSuspicionBridge` (`runtime.fault_tolerance`) syncs after
+     every dispatch: it must suspect each crashed peer before its
+     eviction;
  14. L2 at D = 9 with its default cover (M = 18: the general kernel) at
      n = 1,000,000: the init storm and 100 cycles, the kernel held
      exactly against its plain version on clones of its inputs on 2 more
@@ -102,8 +105,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      of the stepping trials, the first per-trial-t cycle; cycles 0, 50
      and 99 at 1e6), and the `batched` path's launches are read in one
      window around these two engines. Then the sweep's slowest and
-     fastest trial re-run serially (equal cycles, messages, outputs;
-     one launch of each wheel kernel a cycle on both), the per-margin
+     fastest trial re-run serially (equal cycles, messages, outputs; one
+     launch of each wheel kernel a cycle on both), the per-margin
      table, trial-cycles/s, a 10-cycle profile of a twin engine and the
      peak memory;
  16. the serve layer: the differential harness's three serve schedules
@@ -111,9 +114,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      `ThresholdServer` over the kernels-on engine and over the plain
      one (transitions, outputs after every flush, counters and full
      state equal; conservation after every flush); majority at
-     n = 100,000, window 8, 4,000 updates in 16 bursts with a join and a
+     n = 100,000, window 8, 16 bursts of 250 updates with a join and a
      leave each, every burst pumped until settled: updates/s, settle
-     latencies in cycles and ms, transitions, dropped 0;
+     latencies in cycles and ms, transitions (each kept as a digest),
+     dropped 0;
  17. the sharded engine (`make_engine(..., mesh=)`, one process a rank
      through `launch.mesh.spawn`): world 1 on NCCL and worlds 2 and 4 on
      gloo, every rank on this card. Each world runs phase 3's majority
@@ -126,14 +130,39 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      against their plain versions on its first cycle, each wheel kernel
      launched once a cycle on every rank, rank 0 profiled, the exchange
      timed alone; world 1 also runs phase 5 (n = 1,000,000), equal to its
-     engine in every state field, outputs and counters. NCCL at world 2
-     or 4 runs only with a card a rank;
+     engine in every state field, outputs and counters. The same two jobs
+     then run the control plane on the same groups: the tree collectives
+     (`core.tree_collectives`: reduce, broadcast and all-reduce of
+     float32, bfloat16 and int64 tensors on the card, bit-identical to
+     the host replay of the reference's schedule; a 4-byte and a 64 MiB
+     `tree_all_reduce` timed beside `dist.all_reduce`), phase 16's serve
+     load over the sharded engine (all 16 bursts at world 1, the first
+     `SERVE_BURSTS_MULTI` at worlds 2 and 4, from phase 16's state once
+     its init storm settled: rank 0's server leads, the others follow;
+     updates/s and settle latencies; transitions,
+     settle cycles and the cycle count equal to phase 16's over the
+     same bursts) and, in the 4-rank job, `resize_mesh` through phase
+     3's majority churn cell (4 -> 2 -> 4 -> 1 -> 4 ... ranks, one
+     resize after every second check; the state equal to phase 3's
+     digests at every check). NCCL at world 2 or 4 runs only with a card a rank;
+ 18. the control plane in this process: `runtime.elastic`'s
+     `churn_drill` (8 joins and leaves one cycle apart, which break
+     convergence: the drill must reconverge) and
+     `decision_latency_profile` (16 trials, one batched engine) at 4,096
+     hosts, with every kernel and with every plain version, equal;
+     SmolLM-135M (full config) through `run_plain`
+     at batch 8 x 2048 for 6 steps, uninterrupted and with a checkpoint
+     every 2 steps and a failure injected at step 4: the losses from
+     step 4 and the final parameters equal (where not, the step's
+     nondeterministic ops named and the losses within 5e-3); the
+     checkpoint's bytes, a blocking save and a restore timed;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
      schedule, phase 15's batched engines, phase 16, phase 17's ranks,
-     summed): every kernel the
+     summed, phase 18's kernels-on drills, phase 18's two trainer runs):
+     every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
      the plain version). Prints one JSON line with every kernel's
@@ -219,6 +248,9 @@ PATH_KERNELS = {
     # phase 17's ranks, summed over every rank of worlds 1, 2 and 4
     "sharded": {"stage_rows", "threshold_step", "due_dedup", "descent_tail",
                 "majority_step", "threshold_step_mean", "threshold_step_l2"},
+    # phase 18: the elastic drills with kernels; run_plain with resume
+    "control": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
+    "train_smollm_resume": {"flash_attention_fwd"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -1228,16 +1260,24 @@ def phase_armed_big(dev, n: int, max_cycles: int, p2_rows: dict) -> tuple:
     return eng, stats
 
 
-def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool) -> dict:
+def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool,
+                      bridge: bool = False) -> dict:
     """Majority at n peers armed with the crash detector (suspect 25,
     evict 150): converge, crash the `victims` rows, step in 25-cycle
     dispatches until the detector has evicted them all, converge again;
     every survivor must output the truth. With `exact`, nothing but the
     crashed addresses may go; without, the live peers the detector
     evicted as well are counted (the reference's detector convicts a
-    live peer on some schedules)."""
+    live peer on some schedules). With `bridge`, an
+    `EngineSuspicionBridge` rides the detector, synced after every
+    dispatch from the crash on: it must suspect each crashed peer before
+    its eviction, and its planned rejoins must be the engine's
+    evictions, in order, each on the restart budget."""
     import numpy as np
     from repro_torch.engine import FaultConfig
+    from repro_torch.runtime.fault_tolerance import (EngineSuspicionBridge,
+                                                     HeartbeatMonitor,
+                                                     RestartPolicy)
 
     eng, votes, _ = make(n, dev, seed=seed, mu=0.45, faults=FaultConfig(
         suspect_after=25, evict_after=150))
@@ -1256,12 +1296,30 @@ def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool) -> dict:
         eng.crash(i)
     t_crash, sweeps[:] = eng.t, []
     evicted = lambda: {a for _, a in eng.evictions}
+    # the agent's view of the same detector: heartbeats on the cycle
+    # clock, one restart planned per eviction
+    agent = EngineSuspicionBridge(
+        monitor=HeartbeatMonitor(timeout_s=60.0),
+        policy=RestartPolicy(max_restarts=len(victims) + 8))
+    plans, suspected, bridge_s = [], set(), 0.0
+    if bridge:
+        plans = agent.sync(eng)
     sync(dev)
     t0 = time.perf_counter()
     while not gone <= evicted() and eng.t - t_crash < 20 * 256:
         eng.step(25)
+        if bridge:
+            tb = time.perf_counter()
+            plans += agent.sync(eng)
+            suspected |= set(agent.suspects(eng))
+            bridge_s += time.perf_counter() - tb
     sync(dev)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0 - bridge_s
+    if bridge:
+        assert [a for a, _ in plans] == [a for _, a in eng.evictions], (
+            "the bridge's planned rejoins differ from the evictions")
+        assert all(d is not None for _, d in plans)
+        assert gone <= suspected, "a crashed peer was evicted unsuspected"
     live_evicted = sorted(evicted() - gone)
     assert gone <= evicted(), "a crashed peer was not evicted"
     assert not live_evicted or not exact, f"live peers evicted: {live_evicted}"
@@ -1280,7 +1338,8 @@ def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool) -> dict:
            "sweep_ms_mean": 1e3 * float(np.mean(sweeps)),
            "sweep_ms_max": 1e3 * float(np.max(sweeps)), "sweeps": len(sweeps),
            "cycles_per_s": (eng.evictions[-1][0] - t_crash) / dt,
-           "lost_to_fault": cons["lost_to_fault"]}
+           "lost_to_fault": cons["lost_to_fault"],
+           "bridge_plans": len(plans), "bridge_ms_total": bridge_s * 1e3}
     log(f"  armed n={n} seed {seed}: {len(victims)} crashes at spread "
         f"addresses, all evicted by {last} cycles after the crash "
         f"({out['eviction_cycles']}); live peers evicted as well: "
@@ -1288,7 +1347,11 @@ def phase_armed_crash(dev, n: int, seed: int, victims, exact: bool) -> dict:
         f"{out['sweep_ms_mean']:.1f} ms mean, {out['sweep_ms_max']:.1f} max"
         f"; then converged to {truth} at t={eng.t} on the {eng.n} survivors"
         f", dropped 0, lost_to_fault {cons['lost_to_fault']}, conservation "
-        f"holds")
+        f"holds" + (f"; the suspicion bridge (timeout 60 cycles) suspected "
+                    f"every crashed peer before its eviction and planned "
+                    f"{len(plans)} rejoins, the evictions in order "
+                    f"({bridge_s * 1e3:.0f} ms of host syncs, left out of "
+                    f"the rate)" if bridge else ""))
     return out
 
 
@@ -2023,6 +2086,155 @@ def phase_train_smollm(dev, steps: int = 12, batch: int = 8,
 
 
 
+# -- phase 18: the control plane in one process --------------------------------
+
+def phase_drills(dev, hosts: int = 4096, trials: int = 16) -> tuple:
+    """`runtime.elastic`'s drills on the torch engine at `hosts` peers
+    (`capacity_per_peer` 8): `churn_drill` (8 joins and leaves one cycle
+    apart after convergence, which leave some peers on a wrong output:
+    the drill must reconverge) and `decision_latency_profile` (`trials`
+    quorum votes as one `BatchedTorchEngine`), with every kernel and
+    with every plain version: the two dicts equal. Returns (the record,
+    the kernels-on runs' launches)."""
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.runtime import elastic
+
+    got, counts = {}, None
+    for wk in ("auto", "none"):
+        kw = dict(backend="torch", seed=0, device=dev, wheel_kernels=wk,
+                  capacity_per_peer=8)
+        reset_launches()
+        t0 = time.perf_counter()
+        c = elastic.churn_drill(hosts=hosts, events=8, spacing=1, **kw)
+        t1 = time.perf_counter()
+        d = elastic.decision_latency_profile(hosts=hosts, trials=trials, **kw)
+        sync(dev)
+        got[wk] = {"churn": c, "decision": d, "churn_s": t1 - t0,
+                   "decision_s": time.perf_counter() - t1}
+        if wk == "auto":
+            counts = launch_counts()
+    a, b = got["auto"], got["none"]
+    assert a["churn"] == b["churn"] and a["decision"] == b["decision"], (
+        "the drills differ between kernels and plain versions")
+    c, d = a["churn"], a["decision"]
+    assert c["converged"] == 1.0 and c["invalid"] == 0.0, c
+    assert c["reconverge_cycles"] > 0, f"the churn broke no convergence: {c}"
+    assert d["converged"] == 1.0, d
+    log(f"  churn_drill hosts={hosts}: {c['joins']} joins + {c['leaves']} "
+        f"leaves a cycle apart, warm-up {c['warmup_cycles']} cycles, "
+        f"reconverged in {c['reconverge_cycles']} cycles and "
+        f"{c['reconverge_messages']} messages (n {c['hosts_end']}); "
+        f"decision_latency_profile "
+        f"{trials} trials: cycles p50/p95/max {d['cycles_p50']:.0f} / "
+        f"{d['cycles_p95']:.1f} / {d['cycles_max']:.0f}, messages a peer "
+        f"p50 {d['msgs_per_peer_p50']:.2f}; equal with every kernel and with "
+        f"every plain version; kernels {a['churn_s']:.2f} + "
+        f"{a['decision_s']:.2f} s, plain {b['churn_s']:.2f} + "
+        f"{b['decision_s']:.2f} s")
+    return got, counts
+
+
+def phase_resume(dev, steps: int = 6, batch: int = 8, seq: int = 2048,
+                 every: int = 2, fail_at: int = 4):
+    """SmolLM-135M (full config) through `run_plain`: `steps` steps
+    uninterrupted, then with checkpoints every `every` steps and a
+    failure injected at step `fail_at` (restored from the newest
+    checkpoint, replayed): from `fail_at` on the losses, and the final
+    parameters, equal the uninterrupted run's bit for bit; where they
+    do not, the step's nondeterministic ops are named (torch's
+    deterministic-algorithm check on one more step) and the losses must
+    hold PERF.md §2's first-step bound, 5e-3 relative. Then a blocking
+    save and a restore of the final state, timed, and its bytes.
+    Returns (the record, the launches of the two runs)."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_plain
+    from repro_torch.optim.adamw import init_state
+
+    cfg = get_config("smollm-135m")
+    ck = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(arch="smollm-135m", steps=steps, batch=batch, seq_len=seq,
+              device=str(dev), log_every=100)
+    reset_launches()
+    plain = run_plain(train_args(**kw), cfg=cfg)
+    res = run_plain(train_args(ckpt_dir=os.path.join(ck, "run"),
+                               ckpt_every=every, fail_at=fail_at, **kw),
+                    cfg=cfg)
+    sync(dev)
+    counts = launch_counts()
+    n_params = sum(p.numel() for p in _leaves(res.params))
+    assert res.restored == [fail_at - 1 - (fail_at - 1) % every] and \
+        res.steps[-(steps - res.restored[0] - 1):] == list(
+            range(res.restored[0] + 1, steps)), (res.steps, res.restored)
+    after = {s: x for s, x in zip(res.steps, res.losses)}
+    got = [after[s] for s in range(fail_at, steps)]
+    want = plain.losses[fail_at:]
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(_leaves(res.params), _leaves(plain.params)))
+    exact = got == want and same_params
+    rec = {"params": n_params, "steps": steps, "fail_at": fail_at,
+           "restored_step": res.restored[0], "losses": plain.losses,
+           "resumed_losses": got, "bit_identical": exact}
+    if not exact:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        dmax = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(_leaves(res.params), _leaves(plain.params)))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                run_plain(train_args(**dict(kw, steps=1)), cfg=cfg)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        named = sorted({str(w.message).split(" does not have")[0]
+                        for w in caught
+                        if "deterministic" in str(w.message)})
+        rec.update(max_rel_loss_diff=rel, max_abs_param_diff=dmax,
+                   nondeterministic_ops=named)
+        assert rel <= 5e-3, f"resumed losses off by {rel} (bound 5e-3)"
+        log(f"  not bit-identical: nondeterministic on the card: {named}")
+    # a blocking save and a restore of the final state, timed
+    target = {"params": res.params, "opt": init_state(res.params)}
+    last = C.latest_step(os.path.join(ck, "run"))
+    t0 = time.perf_counter()
+    tree, _ = C.restore(os.path.join(ck, "run"), last, target)
+    sync(dev)
+    t_restore = time.perf_counter() - t0
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(tree["params"]),
+                                                 _leaves(res.params)))
+    t0 = time.perf_counter()
+    final = C.save(os.path.join(ck, "timed"), last, tree)
+    t_save = time.perf_counter() - t0
+    nbytes_ck = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(final) for f in fs)
+    shutil.rmtree(ck, ignore_errors=True)
+    steady = sorted(plain.step_seconds[1:])[len(plain.step_seconds[1:]) // 2]
+    rec.update(save_ms=t_save * 1e3, restore_ms=t_restore * 1e3,
+               save_async_ms=[x * 1e3 for x in res.ckpt_seconds],
+               resume_restore_ms=[x * 1e3 for x in res.restore_seconds],
+               checkpoint_bytes=nbytes_ck, median_step_ms=steady * 1e3)
+    log(f"  SmolLM-135M run_plain, {n_params:,} parameters, batch {batch} x "
+        f"{seq}, {steps} steps: a failure at step {fail_at} restored step "
+        f"{res.restored[0]} and replayed; losses from step {fail_at} "
+        f"{[round(x, 5) for x in got]} vs uninterrupted "
+        f"{[round(x, 5) for x in want]}: "
+        f"{'bit-identical, final parameters too' if exact else 'within bound'}"
+        f"; checkpoint {nbytes_ck:,} bytes, blocking save {t_save * 1e3:.0f} "
+        f"ms, restore {t_restore * 1e3:.0f} ms (in the run "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in res.restore_seconds)} ms; "
+        f"save_async calls {', '.join(f'{x * 1e3:.0f}' for x in res.ckpt_seconds)}"
+        f" ms); median step {steady * 1e3:.1f} ms")
+    assert np.isfinite(res.losses).all()
+    return rec, counts
+
+
 # -- phase 15: batched trials ------------------------------------------------
 
 SWEEP_MARGINS = (0.40, 0.45, 0.48, 0.52, 0.55, 0.60)
@@ -2270,7 +2482,7 @@ def phase_sweep(dev, n: int):
     return stats, ctx
 
 
-def sweep_reruns(dev, ctx: dict, reruns: int = 2) -> list:
+def sweep_reruns(dev, ctx: dict) -> list:
     """The sweep's slowest and fastest trial re-run serially on
     `TorchEngine`: equal cycles, messages and outputs, and the single
     engine's wheel-kernel launches a cycle equal the batched engine's."""
@@ -2280,7 +2492,7 @@ def sweep_reruns(dev, ctx: dict, reruns: int = 2) -> list:
 
     res, per_cycle = ctx["res"], ctx["per_cycle"]
     cyc = np.asarray([r["cycles"] for r in res])
-    order = [int(np.argmax(cyc)), int(np.argmin(cyc))][:reruns]
+    order = [int(np.argmax(cyc)), int(np.argmin(cyc))]
     serial = []
     for b in order:
         k0 = launch_counts()
@@ -2459,40 +2671,24 @@ def phase_serve_parity(dev, n: int) -> None:
             f"state equal to the plain engine's; conservation holds")
 
 
-def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
-                     window: int = 8, settle_cap: int = 4000) -> dict:
-    """Majority at n peers behind a ThresholdServer: `bursts` volleys of
-    updates (drawn as `benchmarks/serve.py` draws them, submitted at
-    once), a join and a leave before each, every volley pumped until
-    the server settles. Updates a second, settle latencies, transitions,
-    dropped."""
-    import numpy as np
-    from repro_torch.core.dht import Ring
-    from repro_torch.engine import make_engine
-    from repro_torch.launch.serve import (ThresholdServer, _raw_value,
-                                          settle_latencies, workload_params)
+def transition_digest(tr) -> tuple:
+    """One published transition as (t, output, peers, sha256 of the
+    sorted peer set)."""
+    peers = sorted(tr.peers)
+    return (int(tr.t), int(tr.output), len(peers),
+            hashlib.sha256(repr(peers).encode()).hexdigest()[:16])
 
-    rng = np.random.default_rng(0)
-    params = workload_params("majority", rng)
-    ring = Ring.random(n, 32, seed=0)
-    votes = (rng.random(n) < 0.4).astype(np.int64)
-    eng = make_engine("torch", ring, votes, seed=1, device=dev,
-                      capacity_per_peer=8)
-    server = ThresholdServer(eng, window=window)
-    t0 = time.perf_counter()
-    server.pump()
-    while not server.settled:  # the init storm, off the clock
-        server.pump()
-    t_init = time.perf_counter() - t0
-    server.trace.clear()
-    per = updates // bursts
-    sched = [(rng.integers(0, n, per),
-              [_raw_value("majority", rng, params) for _ in range(per)])
-             for _ in range(bursts)]
-    addrs = [int(a) for a in ring.addrs]
-    occupied = set(addrs)
-    windows0 = server.windows
-    t0 = time.perf_counter()
+
+def serve_bursts(server, eng, sched, occupied, addrs, rng, params,
+                 within, marks) -> None:
+    """The volleys of `sched` through the leading `server`: a join at a
+    free address and a leave of a live one, the volley's submits, then
+    pumps until the server settles (`within()` must hold meanwhile);
+    after each, `marks` gets the cycle, the transitions and the settle
+    records so far."""
+    import numpy as np
+    from repro_torch.launch.serve import _raw_value
+
     for tgt, vals in sched:
         while True:
             a = int(rng.integers(1, 1 << 16))
@@ -2509,29 +2705,115 @@ def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
         server.pump()
         while not server.settled:
             server.pump()
-            assert server.windows - windows0 < settle_cap, "never settled"
+            assert within(), "never settled"
+        marks.append((int(eng.t), server.notifier.published,
+                      sum(r["kind"] == "settle" for r in server.trace)))
+
+
+SERVE_WARM = os.path.join(HERE, "build", "serve_warm_state.npz")
+
+
+def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
+                     window: int = 8, settle_cap: int = 4000,
+                     mesh=None, run: int = 0, warm: str = None) -> dict:
+    """Majority at n peers behind a ThresholdServer: `bursts` volleys of
+    updates (drawn as `benchmarks/serve.py` draws them, submitted at
+    once), a join and a leave before each, every volley pumped until
+    the server settles. Updates a second, settle latencies, transitions,
+    dropped. `run` of the volleys are served (all when 0: the first
+    `run` of the same schedule). The engine's state once the init storm
+    has settled is written to `SERVE_WARM`; with `warm` (that file) the
+    engine starts from it instead (its notifier seeded with those
+    outputs), skipping the storm. With `mesh` (a process group) the
+    engine is the sharded one and every rank of the group calls this:
+    rank 0's server takes the calls and the others follow it."""
+    import numpy as np
+    from repro_torch.core.dht import Ring
+    from repro_torch.engine import (ShardedTorchEngine, TorchEngine,
+                                    make_engine)
+    from repro_torch.launch.serve import (ThresholdServer, _raw_value,
+                                          settle_latencies, workload_params)
+
+    rng = np.random.default_rng(0)
+    params = workload_params("majority", rng)
+    ring = Ring.random(n, 32, seed=0)
+    votes = (rng.random(n) < 0.4).astype(np.int64)
+    mkw = {} if mesh is None else {"mesh": mesh}
+    t0 = time.perf_counter()
+    if warm is None:
+        eng = make_engine("torch", ring, votes, seed=1, device=dev,
+                          capacity_per_peer=8, **mkw)
+    else:
+        with np.load(warm) as z:
+            state = dict(z)
+        cls = TorchEngine if mesh is None else ShardedTorchEngine
+        eng = cls.from_state(ring, state, seed=1, device=dev,
+                             capacity_per_peer=8, **mkw)
+    server = ThresholdServer(eng, window=window)
+    if warm is None:
+        if server.lead:
+            server.pump()
+            while not server.settled:  # the init storm, off the clock
+                server.pump()
+            server.close()
+        else:
+            server.follow()
+        if mesh is None:
+            os.makedirs(os.path.dirname(SERVE_WARM), exist_ok=True)
+            np.savez(SERVE_WARM, **eng.global_state())
+    else:  # the notifier knows every peer's settled output, as after a storm
+        server.notifier.publish(eng.t, np.asarray(eng.ring.addrs),
+                                eng.outputs())
+    t_init = time.perf_counter() - t0
+    server.trace.clear()
+    trs = []
+    server.subscribe(lambda tr: trs.append(transition_digest(tr)))
+    per = updates // bursts
+    sched = [(rng.integers(0, n, per),
+              [_raw_value("majority", rng, params) for _ in range(per)])
+             for _ in range(bursts)][: run or bursts]
+    addrs = [int(a) for a in ring.addrs]
+    occupied = set(addrs)
+    windows0, marks = server.windows, []
+    published0 = server.notifier.published
+    t0 = time.perf_counter()
+    if server.lead:
+        serve_bursts(server, eng, sched, occupied, addrs, rng, params,
+                     lambda: server.windows - windows0 < settle_cap, marks)
+        marks = [(t, k - published0, m) for t, k, m in marks]
+        server.close()
+    else:
+        server.follow()
     sync(dev)
     elapsed = time.perf_counter() - t0
     st, lat = server.stats(), settle_latencies(server.trace)
     assert st["dropped"] == 0 and eng.dropped == 0, "messages dropped"
     eng.check_conservation()
     assert (eng.outputs() == server.truth).all()
-    rec = {"n": n, "init_s": t_init, "updates": st["submitted"],
+    submitted = per * len(sched)
+    rec = {"n": n, "init_s": t_init, "updates": submitted,
            "elapsed_s": elapsed,
-           "updates_per_s": st["submitted"] / elapsed,
+           "updates_per_s": submitted / elapsed,
            "windows": server.windows - windows0,
            "cycles": int(eng.t), "transitions": st["transitions"],
            "applied": st["applied"], "coalesced": st["coalesced"],
-           "dropped": st["dropped"], **lat}
+           "dropped": st["dropped"], **lat,
+           "settle_cycles": [r["cycles"] for r in server.trace
+                             if r["kind"] == "settle"],
+           "settle_ms": [r["wall_ms"] for r in server.trace
+                         if r["kind"] == "settle"],
+           "transition_digests": trs, "burst_marks": marks}
+    if mesh is not None:
+        return rec
     q = lambda unit: "/".join(
         "-" if lat[f"{unit}_{k}"] is None else f"{lat[f'{unit}_{k}']:.1f}"
         for k in ("p50", "p95", "max"))
     log(f"  majority n={n}, window {window}: {rec['updates']} updates in "
-        f"{bursts} bursts with a join and a leave each, {elapsed:.2f} s = "
-        f"{rec['updates_per_s']:.0f} updates/s over {rec['windows']} windows;"
-        f" settle latency p50/p95/max {q('cycles')} cycles, {q('ms')} ms "
-        f"({lat['decisions']} settles); {st['transitions']} transitions; "
-        f"dropped 0")
+        f"{len(sched)} bursts with a join and a leave each, {elapsed:.2f} s "
+        f"= {rec['updates_per_s']:.0f} updates/s over {rec['windows']} "
+        f"windows; settle latency p50/p95/max {q('cycles')} cycles, "
+        f"{q('ms')} ms ({lat['decisions']} settles); {st['transitions']} "
+        f"transitions; dropped 0")
     return rec
 
 
@@ -2547,7 +2829,8 @@ def shard_cells(world: int):
     majority engine without the threshold kernel, the plain majority
     engine, and the first fault schedule armed."""
     return ("majority",) + (("mean", "l2", "majority_no_threshold",
-                             "majority_plain", "armed") if world == 2 else ())
+                             "majority_plain", "armed") if world == 2
+                            else ())
 
 
 def shard_cell_run(cell: str, dev, **mesh) -> list:
@@ -2723,21 +3006,177 @@ def shard_rank(dev, group, world: int, n_mid: int, n_big: int) -> dict:
 
 
 def shard_job(rank: int, world: int, dev, worlds, n_mid: int,
-              n_big: int) -> dict:
+              n_big: int, serve_bursts: int) -> dict:
     """One rank of a spawned job of `world` ranks: for each world size w
     of `worlds`, `shard_rank` on the job's first w ranks (the whole job,
     or a `dist.new_group` of them on the job's backend; the other ranks
-    wait at a barrier), phase 5 at world 1 only. Returns {w: this rank's
-    record} for the worlds it took part in."""
+    wait at a barrier), phase 5 at world 1 only; then the control plane
+    on the same groups (`control_rank`). Returns {w: this rank's record}
+    for the worlds it took part in, and "control"."""
     import torch.distributed as dist
 
-    out = {}
+    out, groups = {}, {}
     for w in worlds:
-        group = (dist.group.WORLD if w == world
-                 else dist.new_group(list(range(w))))
+        groups[w] = (dist.group.WORLD if w == world
+                     else dist.new_group(list(range(w))))
         if rank < w:
-            out[w] = shard_rank(dev, group, w, n_mid, n_big if w == 1 else 0)
+            out[w] = shard_rank(dev, groups[w], w, n_mid,
+                                n_big if w == 1 else 0)
         dist.barrier()
+    out["control"] = control_rank(rank, dev, groups, n_mid, serve_bursts)
+    return out
+
+
+# tree collectives on the card: the dtypes, and the sizes timed
+TREE_DTYPES = ("float32", "bfloat16", "int64")
+TREE_TIMED = ((4, 20), (64 << 20, 2))  # (bytes, calls)
+
+
+def tree_inputs(p: int, numel: int = 4099) -> dict:
+    """Every rank's input of each dtype on the host, drawn from its rank:
+    float32 over eight decades (the order of additions shows), bfloat16
+    rounded from it, int64 up to 2^40."""
+    import numpy as np
+    import torch
+
+    out = {k: [] for k in TREE_DTYPES}
+    for r in range(p):
+        rng = np.random.default_rng(1000 + r)
+        f = (rng.standard_normal(numel)
+             * 10.0 ** rng.uniform(-4, 4, numel)).astype(np.float32)
+        out["float32"].append(torch.from_numpy(f))
+        out["bfloat16"].append(torch.from_numpy(f).to(torch.bfloat16))
+        out["int64"].append(torch.from_numpy(
+            rng.integers(-2**40, 2**40, numel)))
+    return out
+
+
+def bits(t):
+    """A tensor's bit patterns (floats compared bit for bit)."""
+    import torch
+
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(as_int[t.dtype]) if t.dtype in as_int else t
+
+
+def tree_check(dev, group) -> dict:
+    """`core.tree_collectives` on `group` with tensors on `dev`: each of
+    `tree_reduce`, `tree_broadcast` and `tree_all_reduce` on every dtype
+    of `tree_inputs`, bit-identical to the host replay of the reference's
+    schedule (`schedule_replay`) for this rank; then the ms of a 4-byte
+    and a 64 MiB float32 `tree_all_reduce` beside `dist.all_reduce` on
+    the same group (host clock around synchronized calls, after a
+    barrier)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import tree_collectives as T
+
+    p, rank = dist.get_world_size(group), dist.get_rank(group)
+    xs = tree_inputs(p)
+    for name in TREE_DTYPES:
+        x = xs[name][rank].to(dev)
+        for op, fn in (("reduce", T.tree_reduce),
+                       ("broadcast", T.tree_broadcast),
+                       ("all_reduce", T.tree_all_reduce)):
+            got = fn(x, group).cpu()
+            want = T.schedule_replay(xs[name], op)[rank]
+            assert got.dtype == want.dtype and torch.equal(
+                bits(got), bits(want)), (p, name, op, rank)
+    ms = {}
+    for nb, calls in TREE_TIMED:
+        x = torch.ones(nb // 4, dtype=torch.float32, device=dev)
+        for what, fn in (("tree", lambda: T.tree_all_reduce(x, group)),
+                         ("all_reduce", lambda: dist.all_reduce(
+                             x.clone(), group=group))):
+            fn()
+            sync(dev)
+            dist.barrier(group=group)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            sync(dev)
+            ms[f"{what}_{nb}B"] = (time.perf_counter() - t0) * 1e3 / calls
+    return {"p": p, "backend": dist.get_backend(group), "exact": True,
+            "device": str(dev), "ms": ms}
+
+
+def resize_drill(dev, sizes=(2, 4, 1, 4)) -> dict:
+    """Phase 3's majority churn cell on the sharded engine of the whole
+    job, re-partitioned after every second of the script's checks to the
+    next of `sizes` ranks in turn (4 -> 2 -> 4 -> 1 -> 4 ...): every rank
+    calls `resize_mesh`, the others drive the script only while they
+    hold lanes. Returns the digests taken at the checks (rank 0 holds
+    lanes throughout) and the sizes."""
+    import itertools
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.churn import random_schedule
+
+    eng, new = churn_cell("majority", dev, mesh=dist.group.WORLD)
+    ring0, order, seen, digests = eng.ring, itertools.cycle(sizes), [], []
+    checks = [0]  # counted on every rank, lanes or not
+    act = lambda f: f() if eng.active else None
+
+    def check():
+        if eng.active:
+            digests.append(snapshot(eng))
+        checks[0] += 1
+        if checks[0] % 2:
+            seen.append(next(order))
+            eng.resize_mesh(seen[-1])
+
+    t0 = time.perf_counter()
+    act(lambda: eng.step(60))
+    check()
+    act(lambda: eng.apply_coalesced(np.arange(new.shape[0]), new))
+    check()
+    sched = random_schedule(ring0, 8, seed=13, spacing=20)
+    for op, gap in zip(sched.ops, sched.gaps):
+        act(lambda: eng.join(op[1], vote=op[2]) if op[0] == "join"
+            else eng.leave(op[1]))
+        check()
+        act(lambda: eng.step(int(gap)))
+        check()
+    if eng.active:
+        assert eng.dropped == 0
+        eng.check_conservation()
+    return {"digests": digests, "sizes": seen,
+            "seconds": time.perf_counter() - t0}
+
+
+def control_rank(rank: int, dev, groups: dict, n_mid: int,
+                 serve_bursts: int) -> dict:
+    """The control plane on one rank of a phase-17 job: tree collectives
+    on each of the job's groups; phase 16's serve load over the sharded
+    engine of each group (the first `serve_bursts` of its 16 volleys, all
+    when 0; the ranks outside wait at a barrier); at 4 ranks the resize
+    drill.
+    The wheel kernels' launches of all of it are counted."""
+    import torch.distributed as dist
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    reset_launches()
+    out = {"tree": {}, "serve": {}}
+    t0 = time.perf_counter()
+    for w, group in groups.items():
+        if rank < w:
+            out["tree"][w] = tree_check(dev, group)
+        dist.barrier()
+    t1 = time.perf_counter()
+    for w, group in groups.items():
+        if rank < w:
+            out["serve"][w] = phase_serve_load(dev, n_mid, mesh=group,
+                                               run=serve_bursts,
+                                               warm=SERVE_WARM)
+        dist.barrier()
+    t2 = time.perf_counter()
+    if dist.get_world_size() == 4:
+        out["resize"] = resize_drill(dev)
+    sync(dev)
+    out["seconds"] = {"tree": t1 - t0, "serve": t2 - t1,
+                      "resize": time.perf_counter() - t2}
+    out["launches"] = launch_counts()
     return out
 
 
@@ -2747,28 +3186,115 @@ def log_top(prof: dict) -> None:
         log(f"    {us:9.1f} us/cycle {count:5.1f}x  {key}")
 
 
+# the volleys of phase 16's 16 that each world of 2 or more ranks serves on
+# the sharded engine (compared with phase 16's first ones); world 1 serves
+# all 16. Gloo ranks sharing the card serve a burst in 4.5-6 s (PERF.md §6)
+SERVE_BURSTS_MULTI = 2
+
+
+SETTLES_FOR_P95 = 10  # fewer settles print each one, not a tail
+
+
+def check_control(world_ctl: list, backend: str, serve_ref: dict,
+                  want: list, launches: dict) -> dict:
+    """Phase 17's control plane from one job's ranks (`control_rank`):
+    the tree collectives exact on every rank of every group, each
+    world's sharded serve equal to phase 16's run over the same volleys
+    (transitions, settle cycles and the cycle count at the end), the
+    resize drill's digests equal to phase 3's; logs the figures and adds
+    the ranks' launches to `launches`. Returns the record."""
+    rec = {}
+    for ctl in world_ctl:
+        for k, v in ctl["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    r0 = world_ctl[0]
+    for w, tr in r0["tree"].items():
+        assert all(c["tree"][w]["exact"] for c in world_ctl[:w])
+        rec[f"tree_P{w}"] = tr
+        ms = tr["ms"]
+        staged = tr["backend"] == "gloo" and "cuda" in tr["device"]
+        log(f"  tree collectives P={w} ({tr['backend']}, tensors on "
+            f"{tr['device']}{', staged through the host for send/recv' if staged else ''}): "
+            f"tree_reduce / tree_broadcast / tree_all_reduce of float32, "
+            f"bfloat16 and int64 equal bit for bit on every rank to the host "
+            f"replay of the reference's schedule; tree_all_reduce 4 B "
+            f"{ms['tree_4B']:.3f} ms, 64 MiB {ms[f'tree_{64 << 20}B']:.2f} ms; "
+            f"dist.all_reduce 4 B {ms['all_reduce_4B']:.3f} ms, 64 MiB "
+            f"{ms[f'all_reduce_{64 << 20}B']:.2f} ms")
+    for w, sv in r0["serve"].items():
+        runs = len(sv["burst_marks"])
+        t_end, n_tr, n_set = serve_ref["burst_marks"][runs - 1]
+        assert sv["transition_digests"] == \
+            serve_ref["transition_digests"][:n_tr], (w, "transitions")
+        assert sv["settle_cycles"] == serve_ref["settle_cycles"][:n_set], (
+            w, "settle cycles")
+        assert sv["cycles"] == t_end and sv["burst_marks"] == \
+            serve_ref["burst_marks"][:runs], (w, "cycles")
+        for c in world_ctl[1:w]:
+            assert c["serve"][w]["cycles"] == sv["cycles"]
+            assert c["serve"][w]["transition_digests"] == \
+                sv["transition_digests"]
+        tail = n_set >= SETTLES_FOR_P95  # else each settle, not a tail
+        rec[f"serve_world{w}"] = {k: v for k, v in sv.items() if k not in (
+            "transition_digests", "burst_marks", "settle_cycles",
+            "settle_ms") and (tail or not k.startswith(("cycles_p", "ms_p")))}
+        lat = (f"settle p50/p95/max {sv['cycles_p50']:.0f} / "
+               f"{sv['cycles_p95']:.0f} / {sv['cycles_max']:.0f} cycles, "
+               f"{sv['ms_p50']:.1f} / {sv['ms_p95']:.1f} / "
+               f"{sv['ms_max']:.1f} ms" if tail else "settles " + ", ".join(
+                   f"{c} cycles in {m:.1f} ms" for c, m in
+                   zip(sv["settle_cycles"], sv["settle_ms"])))
+        log(f"  sharded serve world {w} ({backend}), n={sv['n']}: "
+            f"{'all' if runs == 16 else f'the first {runs}'} of phase 16's "
+            f"16 bursts ({sv['updates']} updates, a join and a leave each), "
+            f"{sv['elapsed_s']:.2f} s = {sv['updates_per_s']:.1f} updates/s "
+            f"over {sv['windows']} windows; {lat}; {n_tr} transitions and "
+            f"{n_set} settle cycles equal to phase 16's on every rank, "
+            f"t={sv['cycles']}")
+    sec = r0["seconds"]
+    rec["control_seconds"] = sec
+    log(f"  the control plane on rank 0 of the {backend} job: "
+        f"{sum(sec.values()):.1f} s (tree collectives {sec['tree']:.1f}, "
+        f"serving {sec['serve']:.1f}, resize {sec['resize']:.1f})")
+    if "resize" in r0:
+        rz = r0["resize"]
+        assert rz["digests"] == want, "the resized engine's state differs"
+        rec["resize"] = {"sizes": rz["sizes"], "checks": len(rz["digests"]),
+                         "seconds": rz["seconds"]}
+        log(f"  resize_mesh through phase 3's majority churn cell, "
+            f"re-partitioned after every second of its "
+            f"{len(rz['digests'])} checks "
+            f"({' -> '.join(map(str, [4] + rz['sizes']))} ranks): the "
+            f"gathered state equal to phase 3's kernels-on digests at every "
+            f"check; {rz['seconds']:.1f} s")
+    return rec
+
+
 def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
-                  n_mid: int = N_MID, n_big: int = N_BIG) -> tuple:
+                  serve_ref: dict, n_mid: int = N_MID,
+                  n_big: int = N_BIG) -> tuple:
     """Phase 17. World 1 on NCCL, then worlds 2 and 4 on gloo (every rank
     on this card, one spawned job of 4 ranks, world 2 on its first two)
     run `shard_rank`: every rank gathers the same state, and each cell's
     digests equal `want`'s, the kernels-on single engine's of phases 3
-    and 12, held there against the plain engine at every check
-    ("majority_plain", the plain sharded engine, against the kernels-on
-    single one); the 1e5 stage cycles equal phase 4's; at world 1 the 1e6
-    state, outputs and counters equal phase 5's. Returns (the record, the
-    path's launches summed over every rank)."""
+    and 12, held there against the plain engine at every check; the 1e5
+    stage cycles equal phase 4's; at world 1 the 1e6 state, outputs and
+    counters equal phase 5's. Returns (the record, the path's launches
+    summed over every rank)."""
+    want = dict(want, majority_plain=want["majority"])
     import torch
     from repro_torch.launch.mesh import spawn
 
-    want = dict(want, majority_plain=want["majority"])
     rec, launches = {}, {}
     # NCCL takes one rank a card: more ranks on this card go on gloo
     jobs = (("nccl" if dev.type == "cuda" else "gloo", (1,)),
             ("gloo", tuple(w for w in SHARD_WORLDS if w > 1)))
     for backend, worlds in jobs:
+        bursts = SERVE_BURSTS_MULTI if max(worlds) > 1 else 0
         job = spawn(shard_job, max(worlds), backend, str(dev), worlds,
-                    n_mid, n_big, timeout=900)
+                    n_mid, n_big, bursts, timeout=900)
+        rec.update(check_control([g["control"] for g in job], backend,
+                                 serve_ref, want["majority"], launches))
         for world in worlds:
             got = [g[world] for g in job[:world]]
             r0 = got[0]
@@ -2784,7 +3310,8 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
                 for k, v in g["launches"].items():
                     launches[k] = launches.get(k, 0) + v
             mid = r0["mid"]
-            for st in ("stage1", "stage2"):
+            stages = sorted(k for k in mid if k.startswith("stage"))
+            for st in stages:
                 assert mid[st]["cycles"] == conv[st]["cycles"], (world, st)
                 assert all(g["mid"][st]["cycles"] == mid[st]["cycles"]
                            for g in got)
@@ -2800,11 +3327,11 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
                 f"cells {', '.join(sorted(r0['cells']))} equal on every rank "
                 f"to the kernels-on single engine of phases 3 and 12 (itself "
                 f"equal to the plain one) in full state at each of their "
-                f"checks; n={n_mid} stages {mid['stage1']['cycles']} + "
-                f"{mid['stage2']['cycles']} cycles (phase 4: "
-                f"{conv['stage1']['cycles']} + {conv['stage2']['cycles']}) "
-                f"at {mid['stage1']['cycles_per_s']:.1f} / "
-                f"{mid['stage2']['cycles_per_s']:.1f} cycles/s; rank 0 "
+                f"checks; n={n_mid} "
+                + ", ".join(f"{st} {mid[st]['cycles']} cycles (phase 4: "
+                            f"{conv[st]['cycles']}) at "
+                            f"{mid[st]['cycles_per_s']:.1f} cycles/s"
+                            for st in stages) + "; rank 0 "
                 f"{mid['profile']['device_ms_per_cycle']:.3f} ms device a "
                 f"cycle in {mid['profile']['launches_per_cycle']:.0f} "
                 f"launches; the exchange {mid['exchange']['ms']:.3f} ms, "
@@ -2834,7 +3361,7 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
     if dev.type == "cuda" and cards >= 2:
         world = 4 if cards >= 4 else 2
         got = spawn(shard_job, world, "nccl", None, (world,), n_mid, 0,
-                    timeout=900)
+                    SERVE_BURSTS_MULTI, timeout=900)
         for cell, digests in got[0][world]["cells"].items():
             assert digests == want[cell], (world, cell)
         mid = got[0][world]["mid"]
@@ -2994,7 +3521,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     spread = lambda lo: [int(i) for i in np.linspace(lo, N_MID - lo, 16)]
     armed["crash_1e5"] = phase_armed_crash(dev, N_MID, 41,
-                                           spread(N_MID // 64), exact=True)
+                                           spread(N_MID // 64), exact=True,
+                                           bridge=True)
     # the schedule on which the reference's detector (its numpy oracle
     # too) evicts a live neighbour of a crashed peer: every crashed peer
     # must still go and the survivors converge; the live ones are counted
@@ -3051,7 +3579,16 @@ def main() -> int:
         f"on the first fault schedule (worlds 1, 2, 4); "
         f"phase 4 at n = {N_MID:,} on each world; phase 5 at n = {N_BIG:,} "
         f"at world 1")
-    shard, paths["sharded"] = phase_sharded(dev, conv, big_ref, shard_want)
+    shard, paths["sharded"] = phase_sharded(dev, conv, big_ref, shard_want,
+                                            serve)
+    torch.cuda.empty_cache()
+
+    log("phase 18: the control plane: the elastic drills at 4,096 hosts "
+        "(kernels vs plain versions); SmolLM-135M run_plain with a checkpoint "
+        "every 2 steps and a failure at step 4 of 6, against an "
+        "uninterrupted run")
+    drills, paths["control"] = phase_drills(dev)
+    resume, paths["train_smollm_resume"] = phase_resume(dev)
     torch.cuda.empty_cache()
 
     for path, counts in paths.items():
@@ -3068,7 +3605,9 @@ def main() -> int:
         "10; armed: phases 12-13, without the threshold kernel: phase 12's "
         "last schedule; batched: phase 15's sweep and B = 4 at 1e6 (one "
         "launch of each wheel kernel a batched cycle, as the single "
-        "engine's); serve: phase 16; sharded: phase 17's ranks, summed): "
+        "engine's); serve: phase 16; sharded: phase 17's ranks, summed, its "
+        "control plane too; control: phase 18's drills with kernels; "
+        "train_smollm_resume: phase 18's two run_plain runs): "
         + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
@@ -3078,7 +3617,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': serve, 'sharded': shard})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume})}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -25,7 +25,7 @@ subtree of x spans ``(x - 2^k, x + 2^k - 1]`` with ``2^k = lowbit(x)``.
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -264,3 +264,64 @@ def random_ring(n: int, d: int, seed: int, dtype=np.uint64) -> np.ndarray:
         out = rng.choice(out, size=n, replace=False)
         out.sort()
     return out
+
+
+def tree_neighbors_reference(addrs_sorted: np.ndarray, d: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Ground-truth (UP, CW, CCW) peer indices for every peer, from Lemma 2.
+
+    For peer i: the CW neighbor is the unique peer whose position is the
+    fore-parent of all occupied positions in the subtree of CW[pos_i]
+    (= minimum depth among them); symmetrically CCW. The UP neighbor is the
+    owner-peer of the first ancestor address (walking UP from pos_i) that is
+    some peer's position. Returns -1 where the neighbor does not exist.
+    O(N log N); numpy only — the control tree of `runtime.elastic.Membership`.
+    """
+    n = addrs_sorted.size
+    pos = ring_positions(addrs_sorted, d)
+    pos_to_peer = {int(p): i for i, p in enumerate(pos)}
+    dep = depth(pos, d).astype(np.int64)
+
+    up_n = np.full(n, -1, dtype=np.int64)
+    cw_n = np.full(n, -1, dtype=np.int64)
+    ccw_n = np.full(n, -1, dtype=np.int64)
+
+    # UP: walk ancestors until an occupied position.
+    for i in range(n):
+        p = int(pos[i])
+        if p == 0:
+            continue  # root
+        cur = p
+        while True:
+            cur = int(up(np.asarray(cur, dtype=addrs_sorted.dtype), d))
+            if cur in pos_to_peer:
+                up_n[i] = pos_to_peer[cur]
+                break
+            if cur == 0:
+                break  # 0 not occupied as a *position* only if no wrap peer; cannot happen
+    # CW/CCW: the min-depth occupied position in each child subtree. Sort
+    # peers by position; child subtrees are contiguous position ranges.
+    order = np.argsort(pos, kind="stable")
+    pos_sorted = pos[order]
+    for i in range(n):
+        p = pos[i]
+        if int(p) == 0:
+            # Root: CW subtree is every other peer.
+            if n > 1:
+                rest = np.arange(n) != i
+                j = np.argmin(np.where(rest, dep, np.iinfo(np.int64).max))
+                cw_n[i] = j
+            continue
+        s = int(lowbit(p))
+        if s == 1:
+            continue  # leaf address: no descendants
+        # CW range (p, p + s - 1]; CCW range (p - s, p - 1] — contiguous, no wrap
+        for (lo, hi, out) in (
+            (int(p) + 1, int(p) + s - 1, cw_n),
+            (int(p) - s + 1, int(p) - 1, ccw_n),
+        ):
+            a = np.searchsorted(pos_sorted, np.asarray(lo, dtype=pos.dtype), side="left")
+            b = np.searchsorted(pos_sorted, np.asarray(hi, dtype=pos.dtype), side="right")
+            if b > a:
+                cand = order[a:b]
+                out[i] = cand[np.argmin(dep[cand])]
+    return up_n, cw_n, ccw_n

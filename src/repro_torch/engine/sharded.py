@@ -39,6 +39,13 @@ every world size.
 `launch.mesh.spawn` starts W ranks in one call (the tests, `chip_smoke`).
 The collective backend is the caller's group's; the engine never picks
 or changes it.
+
+`resize_mesh(k)` re-partitions the live engine onto the first k ranks of
+the group it was built on (the reference's `resize_mesh`, whose mesh
+becomes a `dist.new_group` of those ranks): every rank of that group
+calls it, the state is gathered and re-cut, and the trajectory goes on
+bit for bit. A rank outside the k holds no lanes and takes no other
+call until a later resize brings it back.
 """
 from __future__ import annotations
 
@@ -254,6 +261,9 @@ class ShardedTorchEngine(TorchEngine):
         if self.n_shards & (self.n_shards - 1):
             raise ValueError(f"engine group size must be a power of two, "
                              f"got {self.n_shards}")
+        # the group the engine was built on, which `resize_mesh` cuts
+        # subgroups of its first k ranks from (cached by k)
+        self._home, self._groups = self.group, {self.n_shards: self.group}
         super().__init__(ring, votes, seed=seed, **kwargs)
 
     @classmethod
@@ -277,6 +287,65 @@ class ShardedTorchEngine(TorchEngine):
 
     def _make_plane(self) -> ShardedPlane:
         return ShardedPlane(self)
+
+    def _one_trial(self, what: str) -> None:
+        if self.group is None:
+            raise RuntimeError(
+                f"ShardedTorchEngine.{what}: this rank holds no lanes since "
+                f"resize_mesh({self.n_shards}); only the first "
+                f"{self.n_shards} ranks of the engine's group take its calls "
+                f"until a resize brings this one back")
+        super()._one_trial(what)
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank holds lanes (False after a `resize_mesh`
+        that left it out)."""
+        return self.group is not None
+
+    def resize_mesh(self, k) -> None:
+        """Re-partition the LIVE engine onto the first `k` ranks (a power
+        of two; True: all) of the group it was built on. Every rank of
+        that group calls it. The lane layout does not depend on the rank
+        count, so this is data movement: the ranks holding lanes gather
+        the whole state to their hosts, rank 0 hands it (with the ring
+        and the detector's host tables) to any rank that comes back, and
+        each of the k keeps its blocks. The trajectory continues
+        bit-identically; a rank past k drops its blocks."""
+        from repro_torch.engine.convert import state_from_numpy
+
+        home = self._home
+        world = dist.get_world_size(home)
+        k = world if k is True else int(k)
+        if not 1 <= k <= world or k & (k - 1):
+            raise ValueError(f"resize_mesh({k}): want a power of two in "
+                             f"1..{world}, the ranks of the engine's group")
+        old, me = self.n_shards, dist.get_rank(home)
+        if k == old:
+            return
+        host = self.global_state() if self.active else None
+        self.n_shards = k
+        if me >= k:
+            self.group, self._st, self._store = None, None, None
+            self._plane = None
+            return
+        if k not in self._groups:  # only the k members take part
+            self._groups[k] = dist.new_group(
+                [dist.get_global_rank(home, i) for i in range(k)],
+                use_local_synchronization=True)
+        self.group, self.rank = self._groups[k], me
+        if k > old:  # ranks old..k-1 come back with rank 0's copy
+            box = [(self.ring, self.pad, self._evictions, self._heard_floor,
+                    self._evict_floor, host) if me == 0 else None]
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(home, 0), group=self.group)
+            if me >= old:
+                (self.ring, self.pad, self._evictions, self._heard_floor,
+                 self._evict_floor, host) = box[0]
+                self.n = int(self.ring.n)
+        self._size_tables()
+        self._plane = self._make_plane()
+        self._adopt(state_from_numpy(host))
 
     def _adopt(self, st: DeviceState) -> None:
         """Take this rank's blocks of the GLOBAL state `st`."""
@@ -302,6 +371,7 @@ class ShardedTorchEngine(TorchEngine):
         the replicated ones copied."""
         from repro_torch.engine.convert import state_to_numpy
 
+        self._one_trial("global_state")
         return state_to_numpy(DeviceState(**{
             k: (_gather_host(v, self.group) if k in PARTITIONED else v.cpu())
             for k, v in self._st._asdict().items()}))

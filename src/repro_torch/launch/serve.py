@@ -42,6 +42,15 @@ disturbances merge into the open epoch (latency is measured from the
 oldest unserved disturbance — the honest tail). Resolution is one
 serve window.
 
+Over the sharded engine (`engine.sharded.ShardedTorchEngine`, one process
+a rank) a `ThresholdServer` runs on every rank of the engine's group and
+rank 0 is the front end: it alone owns the ingestion ring and takes
+client calls, and it relays each churn upcall and each window's drained
+batch to the other ranks (one `broadcast_object_list` a call), whose
+servers run `follow()` until rank 0's `close()`. Every rank thus makes
+the same engine calls, and so the same collectives, in the same order;
+its notifier and trace equal those of a server over `TorchEngine`.
+
 The deterministic workload generator (`gen_workload` /
 `replay_workload`) drives the same API from seeded per-window Poisson
 schedules; the same trace replays bit-identically through the port's
@@ -119,7 +128,9 @@ class DecisionNotifier:
     """
 
     def __init__(self):
-        self._last: Dict[int, int] = {}
+        # the last published snapshot, sorted by address
+        self._addrs = np.zeros(0, np.uint64)
+        self._outs = np.zeros(0, np.int64)
         self._subs: Dict[int, Callable[[Transition], None]] = {}
         self._next_sub = 0
         self.published = 0   # transitions emitted
@@ -142,15 +153,21 @@ class DecisionNotifier:
                 outputs: np.ndarray) -> List[Transition]:
         """Diff the snapshot against the last published outputs; emit
         and deliver the transitions. New addresses (joiners) transition
-        to their first output; departed addresses are pruned."""
-        cur = {int(a): int(o) for a, o in zip(addrs, outputs)}
-        changed: Dict[int, List[int]] = {}
-        for a, o in cur.items():
-            if self._last.get(a) != o:
-                changed.setdefault(o, []).append(a)
-        self._last = cur
-        out = [Transition(int(t), frozenset(peers), o)
-               for o, peers in sorted(changed.items())]
+        to their first output; departed addresses are pruned. One
+        search of the snapshot's addresses in the last one's."""
+        addrs = np.asarray(addrs).astype(np.uint64)
+        outputs = np.asarray(outputs).astype(np.int64)
+        changed = np.ones(addrs.size, bool)
+        if self._addrs.size:
+            pos = np.minimum(np.searchsorted(self._addrs, addrs),
+                             self._addrs.size - 1)
+            changed = ((self._addrs[pos] != addrs)
+                       | (self._outs[pos] != outputs))
+        order = np.argsort(addrs, kind="stable")
+        self._addrs, self._outs = addrs[order], outputs[order]
+        out = [Transition(int(t), frozenset(
+                   addrs[changed & (outputs == o)].tolist()), int(o))
+               for o in np.unique(outputs[changed])]
         for tr in out:
             self.published += 1
             for cb in list(self._subs.values()):
@@ -165,8 +182,10 @@ class ThresholdServer:
     `window` is the serve superstep length in cycles: every `pump()` is
     flush -> `engine.step(window)` -> publish. The engine must be a
     single-trial `MajorityEngine` with `apply_coalesced` (both of the
-    port's backends; `batch=` engines are rejected — one server serves
-    one monitoring instance).
+    port's backends and the sharded engine; `batch=` engines are
+    rejected — one server serves one monitoring instance). Over a
+    sharded engine, rank 0's server takes the client calls and the
+    others `follow()` it (module docstring).
     """
 
     def __init__(self, engine, window: int = 8,
@@ -199,6 +218,59 @@ class ThresholdServer:
         self._epoch_t0: Optional[int] = None
         self._epoch_wall: Optional[float] = None
         self.converged = True
+        # a sharded engine: rank 0 relays its calls to the other ranks
+        self._group = engine.group if getattr(engine, "sharded", False) \
+            else None
+        self.lead = True
+        if self._group is not None:
+            import torch.distributed as dist
+
+            self.lead = dist.get_rank(self._group) == 0
+            if dist.get_world_size(self._group) == 1:
+                self._group = None  # nobody to relay to
+
+    # -- the relay to the other ranks of a sharded engine --------------------
+
+    def _relay(self, *cmd):
+        """Rank 0: hand `cmd` to the following ranks (a no-op without
+        any); a follower may not take client calls."""
+        if self._group is None:
+            return
+        if not self.lead:
+            raise RuntimeError(
+                f"{cmd[0]}: rank 0's server takes the client calls; this "
+                "rank's server runs follow()")
+        self._broadcast(cmd)
+
+    def _broadcast(self, cmd=None):
+        import torch.distributed as dist
+
+        box = [cmd]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self._group, 0), group=self._group)
+        return box[0]
+
+    def follow(self) -> None:
+        """A following rank's loop: apply rank 0's relayed calls until its
+        `close()`."""
+        if self.lead:
+            raise RuntimeError("rank 0's server leads; follow() is for the "
+                               "other ranks")
+        while True:
+            cmd = self._broadcast()
+            if cmd[0] == "close":
+                return
+            if cmd[0] == "join":
+                self._join(*cmd[1:])
+            elif cmd[0] == "leave":
+                self._leave_addr(cmd[1])
+            else:
+                self._pump(*cmd[1:])
+
+    def close(self) -> None:
+        """Rank 0: release the following ranks from `follow()` (a no-op
+        on an engine that is not sharded)."""
+        self._relay("close")
 
     # -- client API ----------------------------------------------------------
 
@@ -206,6 +278,9 @@ class ThresholdServer:
         """Queue one data update for the peer at `addr` (raw problem
         units: scalar for D=1 problems, a (D,) vector otherwise).
         Non-blocking; coalesced last-writer-wins until the next pump."""
+        if not self.lead:
+            raise RuntimeError("submit: rank 0's server owns the ingestion "
+                               "ring")
         self.ring_buf.submit(addr, value)
 
     def subscribe(self, callback: Callable[[Transition], None]) -> int:
@@ -218,6 +293,10 @@ class ThresholdServer:
 
     def join(self, addr: int, value=0) -> int:
         """A peer joins at `addr` with initial data `value` (Alg. 2)."""
+        self._relay("join", addr, value)
+        return self._join(addr, value)
+
+    def _join(self, addr: int, value) -> int:
         k = self.engine.join(int(addr), vote=value)
         row = self.engine.problem.peer_data(value)
         self._data = np.insert(self._data, k, row, axis=0)
@@ -228,6 +307,10 @@ class ThresholdServer:
 
     def leave_addr(self, addr: int) -> None:
         """The peer at `addr` departs (Alg. 2)."""
+        self._relay("leave", addr)
+        self._leave_addr(addr)
+
+    def _leave_addr(self, addr: int) -> None:
         idx = self._resolve(np.asarray([addr]))[0]
         if idx < 0:
             raise KeyError(f"no live peer at address {addr}")
@@ -245,8 +328,14 @@ class ThresholdServer:
         boundary, advance `cycles` (default: the server window), publish
         decision changes, account latency. Returns the transitions."""
         wall0 = self.clock()
-        t0 = int(self.engine.t)
         batch = self.ring_buf.drain()
+        self._relay("pump", batch, cycles)
+        return self._pump(batch, cycles, wall0)
+
+    def _pump(self, batch, cycles: Optional[int],
+              wall0: Optional[float] = None) -> List[Transition]:
+        wall0 = self.clock() if wall0 is None else wall0
+        t0 = int(self.engine.t)
         applied = 0
         if batch:
             addrs = np.asarray([a for a, _ in batch], np.int64)

@@ -7,9 +7,16 @@ lines as `repro.launch.train`, plus ``--device`` (default cuda).
         --smoke --device cpu --steps 10 --batch 4 --seq-len 32
     ... --sync threshold --pods 2 --compress-tau 1e-3
 
-Checkpointing (``--ckpt-dir``) and failure injection (``--fail-at``)
-need the checkpoint manager and the restart policy, which are not
-ported yet (ROADMAP.md §A8): passing either stops with an error.
+Fault tolerance in `run_plain`, as the reference's: ``--ckpt-dir`` saves
+the parameters, the AdamW state and the data pipeline's position every
+``--ckpt-every`` steps (`ckpt.checkpoint.CheckpointManager`, async) and
+resumes from the newest checkpoint there; ``--fail-at k`` injects one
+failure at step k, after which the `RestartPolicy` restores the newest
+checkpoint and the run goes on. A checkpoint labelled step s holds the
+state after step s, so the run resumes at step s + 1 and its losses and
+final parameters are those of an uninterrupted run.
+
+    ... --steps 6 --ckpt-dir /tmp/ck --ckpt-every 2 --fail-at 4
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -29,13 +37,16 @@ from repro_torch.distributed import threshold_sync as TS
 from repro_torch.launch import steps as S
 from repro_torch.models.model import init_params
 from repro_torch.optim.adamw import AdamWConfig, init_state
+from repro_torch.runtime.fault_tolerance import RestartPolicy
 
 
 @dataclasses.dataclass
 class RunResult:
     """What a run returns: the last step's loss (the reference's return
-    value) and the per-step record. In threshold mode `losses` are the
-    mean over pods and `grad_norms` the per-pod norms."""
+    value) and the per-step record: `steps[i]` is the step whose loss is
+    `losses[i]` (a step replayed after a restore appears again). In
+    threshold mode `losses` are the mean over pods and `grad_norms` the
+    per-pod norms."""
 
     loss: float
     losses: List[float]
@@ -45,13 +56,10 @@ class RunResult:
     n_syncs: int = 0
     sync_steps: List[int] = dataclasses.field(default_factory=list)
     sent_bytes: int = 0
-
-
-def _check_ported(args) -> None:
-    if args.ckpt_dir or args.fail_at is not None:
-        raise NotImplementedError(
-            "--ckpt-dir and --fail-at need ckpt/checkpoint.py and "
-            "runtime/fault_tolerance.py, not ported yet (ROADMAP.md §A8)")
+    steps: List[int] = dataclasses.field(default_factory=list)
+    restored: List[int] = dataclasses.field(default_factory=list)
+    ckpt_seconds: List[float] = dataclasses.field(default_factory=list)
+    restore_seconds: List[float] = dataclasses.field(default_factory=list)
 
 
 def build(args, cfg: Optional[ModelConfig] = None):
@@ -70,30 +78,88 @@ def _device_batch(batch, dev):
 
 
 def run_plain(args, cfg: Optional[ModelConfig] = None, params=None) -> RunResult:
-    """Standard data-parallel training with every-step gradient sync.
-    `cfg` overrides the registry config; `params` the seeded init."""
-    _check_ported(args)
+    """Standard data-parallel training with every-step gradient sync, and
+    with ``args.ckpt_dir`` checkpoints, resume and restart after a
+    failure (module docstring). `cfg` overrides the registry config;
+    `params` the seeded init."""
     dev = resolve_device(args.device)
     cfg, opt, data = build(args, cfg)
     if params is None:
         params = init_params(cfg, args.seed, dev)
     opt_state = init_state(params)
     step_fn = S.make_train_step(cfg, opt, args.schedule, args.steps)
+    mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     res = RunResult(0.0, [], [], [], params)
-    t0 = time.time()
-    for step in range(args.steps):
+    fail_at = args.fail_at
+
+    def restore() -> int:
+        """The newest checkpoint's state; returns the step to run next."""
+        nonlocal params, opt_state
         ts = time.perf_counter()
-        tokens, targets = _device_batch(data.next_batch(), dev)
-        params, opt_state, m = step_fn(params, opt_state, tokens, targets)
-        loss = float(m["loss"])  # the step's one host read
-        res.step_seconds.append(time.perf_counter() - ts)
-        res.losses.append(loss)
-        res.grad_norms.append(float(m["grad_norm"]))
-        if step % args.log_every == 0:
-            print(f"[train] step={step} loss={loss:.4f} "
-                  f"gnorm={res.grad_norms[-1]:.3f} lr={m['lr']:.2e} "
-                  f"({time.time()-t0:.1f}s)")
-    res.loss, res.params = res.losses[-1], params
+        mgr.wait()  # a save still in flight is the newest
+        got = mgr.restore_latest({"params": params, "opt": opt_state})
+        if got is None:
+            return -1
+        last, tree, extra = got
+        params, opt_state = tree["params"], tree["opt"]
+        data.load_state_dict(extra["data"])
+        res.restore_seconds.append(time.perf_counter() - ts)
+        res.restored.append(last)
+        return last + 1
+
+    def checkpoint(step: int) -> None:
+        ts = time.perf_counter()
+        mgr.save_async(step, {"params": params, "opt": opt_state},
+                       {"data": data.state_dict()})
+        res.ckpt_seconds.append(time.perf_counter() - ts)
+
+    step = 0
+    if mgr is not None:
+        step = max(restore(), 0)
+        if step:
+            print(f"[train] resumed from step {step - 1}")
+    policy = RestartPolicy()
+    t0 = time.time()
+    try:
+        while step < args.steps:
+            try:
+                ts = time.perf_counter()
+                batch = data.next_batch()
+                if fail_at is not None and step == fail_at:
+                    fail_at = None  # the injected failure fires once
+                    raise RuntimeError("injected failure (--fail-at)")
+                tokens, targets = _device_batch(batch, dev)
+                params, opt_state, m = step_fn(params, opt_state, tokens,
+                                               targets)
+                loss = float(m["loss"])  # the step's one host read
+                res.step_seconds.append(time.perf_counter() - ts)
+                res.steps.append(step)
+                res.losses.append(loss)
+                res.grad_norms.append(float(m["grad_norm"]))
+                if step % args.log_every == 0:
+                    print(f"[train] step={step} loss={loss:.4f} "
+                          f"gnorm={res.grad_norms[-1]:.3f} lr={m['lr']:.2e} "
+                          f"({time.time()-t0:.1f}s)")
+                if mgr is not None and step and step % args.ckpt_every == 0:
+                    checkpoint(step)
+                step += 1
+            except RuntimeError as e:
+                delay = policy.next_delay()
+                if delay is None or mgr is None:
+                    raise
+                print(f"[train] failure at step {step}: {e}; restoring "
+                      f"(backoff {delay:.1f}s)")
+                time.sleep(min(delay, 0.2))
+                nxt = restore()
+                if nxt < 0:
+                    raise
+                step = nxt
+        if mgr is not None and res.steps:
+            checkpoint(step - 1)
+    finally:
+        if mgr is not None:
+            mgr.close()
+    res.loss, res.params = (res.losses[-1] if res.losses else 0.0), params
     return res
 
 
@@ -103,7 +169,6 @@ def run_threshold(args, cfg: Optional[ModelConfig] = None,
 
     The pods are G model replicas on one device, stepped in turn (the
     reference's vmap over its G axis)."""
-    _check_ported(args)
     dev = resolve_device(args.device)
     cfg, opt, _ = build(args, cfg)
     G = args.pods
@@ -173,10 +238,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet (ROADMAP.md §A8): raises")
+                    help="checkpoint directory (run_plain): save and resume")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at", type=int, default=None,
-                    help="not ported yet (ROADMAP.md §A8): raises")
+                    help="inject a failure at this step (fault-tol demo)")
     ap.add_argument("--sync", default="plain", choices=("plain", "threshold"))
     ap.add_argument("--pods", type=int, default=2)
     ap.add_argument("--tau", type=float, default=0.02)

@@ -18,7 +18,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_map
 
 
-def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+def _to_torch(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True).contiguous()
     a = np.array(a)  # a writable copy that the tensor may share
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
@@ -33,12 +35,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cpu") -> Dict[str, Any]:
     """The port's parameters from the reference's tree (leaves as numpy
-    arrays, e.g. ``jax.tree.map(np.asarray, params)``)."""
-    conv = lambda a: _to_torch(np.asarray(a), device)
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``, or CPU tensors;
+    a block's leaves may be dicts or, as read from a checkpoint, lists)."""
+    host = lambda a: a if isinstance(a, torch.Tensor) else np.asarray(a)
+    conv = lambda a: _to_torch(host(a), device)
     segments = []
     for seg, (pat, n) in zip(tree["segments"], cfg.segments()):
         segments.append([
-            tuple(tree_map(lambda a, i=i: conv(np.asarray(a)[i]), seg[j])
+            tuple(tree_map(lambda a, i=i: conv(host(a)[i]), seg[j])
                   for j in range(len(pat)))
             for i in range(n)])
     return {"embed": conv(tree["embed"]),
@@ -59,3 +63,46 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
     return {"embed": _to_numpy(params["embed"]),
             "final_norm": tree_map(_to_numpy, params["final_norm"]),
             "segments": segments}
+
+
+def _nest(pairs) -> Dict[str, Any]:
+    """Leaves named by their ``/``-joined tree paths as a nested dict (a
+    sequence's indices become its dict keys, "0", "1", ...)."""
+    root: Dict[str, Any] = {}
+    for name, leaf in pairs:
+        *path, last = name.split("/")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return root
+
+
+def _seq(node):
+    """A nested dict whose keys are all sequence indices as a list."""
+    if isinstance(node, dict):
+        if node and all(k.isdigit() for k in node):
+            return [_seq(node[str(i)]) for i in range(len(node))]
+        return {k: _seq(v) for k, v in node.items()}
+    return node
+
+
+def train_state_from_checkpoint(directory: str, step: int, cfg: ModelConfig,
+                                device="cpu"):
+    """The port's (params, AdamW state, extra) from checkpoint `step` in
+    `directory` that the reference's `CheckpointManager` wrote for
+    ``{"params": params, "opt": opt_state}`` (its `run_plain`). The
+    parameters (and m and v, float32) are re-laid from the reference's
+    stacked periods; the step count becomes the port's host int; `extra`
+    holds the data pipeline's ``state_dict`` under "data"."""
+    from repro_torch.ckpt.checkpoint import load_leaves, leaf_tensor
+
+    got, extra = load_leaves(directory, step)
+    tree = _seq(_nest((m["name"], leaf_tensor(m, a)) for m, a in got))
+    conv = lambda sub: params_from_jax(sub, cfg, device)
+    opt = tree["opt"]
+    return (conv(tree["params"]),
+            {"m": conv(opt["m"]), "v": conv(opt["v"]),
+             "count": int(opt["count"].item())},
+            extra)
+

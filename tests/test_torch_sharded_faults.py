@@ -4,9 +4,10 @@ The differential harness's four `FAULT_GRID` schedules (crash with
 eviction, drop and delay with the probe-only detector) replayed at world
 2, one spawned process a rank, must equal `TorchEngine`'s replay: the
 gathered state at every event boundary, the eviction timeline, the loss
-tally and the rest of the trajectory on every rank (resize events are
-left out, as the reference's replay leaves them out of an engine with no
-`resize_mesh`). And the crash guards hold on a sharded engine.
+tally and the rest of the trajectory on every rank (a crash cell's
+resize event re-partitions the engine while the victim is dead but not
+yet evicted, `resize_mesh`). And the crash guards hold on a sharded
+engine.
 """
 from __future__ import annotations
 

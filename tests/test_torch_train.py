@@ -16,6 +16,8 @@ the sync schedule and the sent bytes exactly.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -129,9 +131,23 @@ def test_run_threshold_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--ckpt-dir", "ckpt"], ["--fail-at", "2"]])
-def test_unported_flags_stop_with_an_error(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A8"):
-        train.main(["--smoke", "--device", "cpu", "--steps", "1", *flag])
+def test_unported_flags_stop_with_an_error(flag, tmp_path, monkeypatch):
+    """The checkpoint flags (ported now; tests/test_torch_ckpt.py runs
+    them) stop with an error where the reference's do: ``--fail-at``
+    with no checkpoint to restore re-raises the injected failure, and
+    ``--ckpt-dir`` over another model's checkpoint refuses its
+    structure."""
+    monkeypatch.chdir(tmp_path)  # "ckpt" lands in the test's directory
+    argv = ["--smoke", "--device", "cpu", "--batch", "2", "--seq-len", "16",
+            *flag]
+    if flag[0] == "--ckpt-dir":
+        train.main(argv + ["--steps", "1", "--arch", "recurrentgemma-9b"])
+        assert os.listdir(tmp_path / "ckpt") == ["step_00000000"]
+        with pytest.raises(ValueError, match="structure mismatch"):
+            train.main(argv + ["--steps", "3"])
+    else:
+        with pytest.raises(RuntimeError, match="injected failure"):
+            train.main(argv + ["--steps", "3"])
 
 
 def test_cli_runs_on_the_cpu(capsys):
