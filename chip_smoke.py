@@ -156,12 +156,35 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      step 4 and the final parameters equal (where not, the step's
      nondeterministic ops named and the losses within 5e-3); the
      checkpoint's bytes, a blocking save and a restore timed;
+ 19. LM serving through `launch.steps.make_prefill_step` /
+     `make_decode_step` (random weights from `init_params`, seeded numpy
+     prompts): Gemma-7B (full config, 8.54 B parameters) batch 4 x 2,048
+     and 64 greedy decode steps; RecurrentGemma-9B at full width, depth
+     3, 1 x 4,096 and 32 steps (its 2,048-token rolling buffer wraps);
+     MiniCPM-2B (full config) 4 x 2,048 and 16 steps; Command-R-35B at
+     full width, depth 4, 2 x 2,048 and 16 steps (LayerNorm). Held at 2e-2
+     relative (max |a - b| / max |b|), block by block in lockstep: each
+     block with its kernels against its plain version on the same input
+     (output and cache tensors), and each block's decode at the first
+     and last step against the train forward over the prompt and the
+     generated tokens; the first greedy tokens equal to the plain
+     prefill's. End to end (reported, beside PyTorch's SDPA in the
+     kernel's place): the prefill against the plain one, each decode
+     step against the train forward, the first block where they part,
+     the argmax agreement. Prefill ms and tokens/s, decode ms a step and
+     tokens/s, one decode step profiled, one layer's decode attention
+     and the float32 head timed, peak memory. Then
+     `flash_attention_fwd` at the dense decoders' prefill shapes (Gemma
+     (4, 16 / 16, 2048, 256), MiniCPM (4, 36 / 36, 2048, 64), Command-R
+     (2, 64 / 8, 2048, 128), causal) against the plain pair schedule,
+     timed beside SDPA;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
      schedule, phase 15's batched engines, phase 16, phase 17's ranks,
-     summed, phase 18's kernels-on drills, phase 18's two trainer runs):
+     summed, phase 18's kernels-on drills, phase 18's two trainer runs,
+     phase 19's prefills and decode steps):
      every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
@@ -251,6 +274,8 @@ PATH_KERNELS = {
     # phase 18: the elastic drills with kernels; run_plain with resume
     "control": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
     "train_smollm_resume": {"flash_attention_fwd"},
+    # phase 19: the four serving cells' prefills and decode steps
+    "serve_lm": {"flash_attention_fwd", "rglru_scan"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -1743,6 +1768,21 @@ def clocks_under(fn, dev, seconds: float = 2.0):
     return mid([r[0] for r in rows]), mid([r[1] for r in rows])
 
 
+def sdpa_args(q, causal: bool, window) -> dict:
+    """`scaled_dot_product_attention`'s keywords for q's GQA attention:
+    is_causal, or a band as an explicit boolean mask."""
+    import torch
+
+    kw = {"enable_gqa": True}
+    if window:
+        i = torch.arange(q.shape[2], device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (
+            i[None, :] > i[:, None] - window)
+    else:
+        kw["is_causal"] = causal
+    return kw
+
+
 def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
     """One PyTorch call computing the same attention (the yardstick):
     (ms, backend, the call) of `scaled_dot_product_attention`. Causal GQA
@@ -1754,14 +1794,7 @@ def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
     import torch.nn.functional as Fn
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    sq = q.shape[2]
-    kw = {"enable_gqa": True}
-    if window:
-        i = torch.arange(sq, device=dev)
-        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (
-            i[None, :] > i[:, None] - window)
-    else:
-        kw["is_causal"] = causal
+    kw = sdpa_args(q, causal, window)
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         def call(be=be):
@@ -1778,6 +1811,81 @@ def sdpa_time(dev, q, k, v, causal: bool, window, iters: int):
     raise RuntimeError("no SDPA backend ran")
 
 
+def record_row(rows: dict, dev, iters: int, name, kernel, plain, err, io,
+               flops, flop_rate, piters, tag="main", library=None) -> None:
+    """Time `kernel` and `plain` (CUDA events per call, profiler device
+    ms) and file the figures under rows[name]["shapes"][tag] (and on
+    rows[name] itself for tag "main") beside the bound: max(io bytes at
+    the HBM rate, flops at `flop_rate`)."""
+    call = time_ms(kernel, dev, iters)
+    pcall = time_ms(plain, dev, piters, warmup=1)
+    ms = device_ms(kernel, dev, iters)
+    pms = device_ms(plain, dev, piters)
+    t_bytes, t_ops = io / HBM_BYTES_PER_S, flops / flop_rate
+    b_ms = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+           "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None if library is None else library[0],
+           "call_ms": call}
+    if library is not None:
+        fig["library"] = f"scaled_dot_product_attention ({library[1]})"
+    if flop_rate == BF16_FLOPS_PER_S:
+        fig["bound_ms_at_fp32_cuda_cores"] = max(
+            t_bytes, flops / ALU_OPS_PER_S) * 1e3
+    rows.setdefault(name, {}).setdefault("shapes", {})[tag] = fig
+    if tag == "main":
+        rows[name].update(fig)
+    log(f"  {name} {tag}: max_abs_err {err:.3g} (rtol, atol "
+        f"{TOL[name]})  "
+        f"device: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by}); per call with launch: kernel {call:.4f} "
+        f"ms, plain {pcall:.4f} ms"
+        + ("" if library is None else
+           f"; SDPA ({library[1]}) {library[0]:.4f} ms")
+        + f"  [{io / 1e6:.1f} MB moved, {flops / 1e9:.2f} GFLOP]")
+
+
+def flash_rows(dev, rows: dict, iters: int, gen, cases,
+               clocks: bool = True) -> None:
+    """`flash_attention_fwd` o and lse against the plain pair schedule on
+    bf16 inputs drawn from `gen`, causal, at each (tag, (B, Hq, Hkv, S,
+    D, window)) of `cases`, timed beside its bound (operations at the
+    bf16 tensor-core rate) and SDPA; with `clocks`, the SM clock and
+    power under the kernel and under SDPA."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     pair_fwd)
+
+    for tag, (bb, hq, hkv, sq, dh, window) in cases:
+        q = torch.randn((bb, hq, sq, dh), generator=gen, device=dev).bfloat16()
+        k = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
+        v = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
+        got = flash_attention_fwd(q, k, v, True, window)
+        want = pair_fwd(q, k, v, True, window, None)
+        sync(dev)
+        err = float_err(got[:1], want[:1], "flash_attention_fwd")
+        err_l = float_err(got[1:], want[1:], "flash_lse")
+        pairs = band_pairs(sq, True, window) * bb * hq
+        io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
+        lib = sdpa_time(dev, q, k, v, True, window, iters)
+        kern = lambda: flash_attention_fwd(q, k, v, True, window)
+        record_row(rows, dev, iters, "flash_attention_fwd", kern,
+                   lambda: pair_fwd(q, k, v, True, window, None), err, io,
+                   4 * dh * pairs, BF16_FLOPS_PER_S, max(1, iters // 4), tag,
+                   library=lib[:2])
+        fig = rows["flash_attention_fwd"]["shapes"][tag]
+        fig["shape"] = [bb, hq, hkv, sq, dh, window]
+        fig["lse_max_abs_err"] = err_l
+        if clocks:
+            fig["sm_mhz_power_w"] = {"kernel": clocks_under(kern, dev),
+                                     "library": clocks_under(lib[2], dev)}
+            log(f"    SM clock (MHz), power (W) under the kernel "
+                f"{fig['sm_mhz_power_w']['kernel']}, under SDPA "
+                f"{fig['sm_mhz_power_w']['library']}")
+        del q, k, v, got, want
+
+
 def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
                         scan=(1, 4096, 4096),
                         rg_attn=(1, 16, 1, 4096, 256, 2048),
@@ -1785,8 +1893,6 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
     """threshold_gate, rglru_scan and flash_attention_fwd against their
     plain versions on the card at the trainer's shapes, timed."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     pair_fwd)
     from repro_torch.kernels.rglru import (linear_scan, linear_scan_reference,
                                            rglru_scan)
     from repro_torch.kernels.threshold_gate import (threshold_gate,
@@ -1794,36 +1900,7 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
 
     gen = torch.Generator(device=dev).manual_seed(2027)
     rows = {}
-
-    def record(name, kernel, plain, err, io, flops, flop_rate, piters,
-               tag="main", library=None):
-        call = time_ms(kernel, dev, iters)
-        pcall = time_ms(plain, dev, piters, warmup=1)
-        ms = device_ms(kernel, dev, iters)
-        pms = device_ms(plain, dev, piters)
-        t_bytes, t_ops = io / HBM_BYTES_PER_S, flops / flop_rate
-        b_ms = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        fig = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-               "bound_ms": b_ms, "bound_by": by,
-               "library_ms": None if library is None else library[0],
-               "call_ms": call}
-        if library is not None:
-            fig["library"] = f"scaled_dot_product_attention ({library[1]})"
-        if flop_rate == BF16_FLOPS_PER_S:
-            fig["bound_ms_at_fp32_cuda_cores"] = max(
-                t_bytes, flops / ALU_OPS_PER_S) * 1e3
-        rows.setdefault(name, {}).setdefault("shapes", {})[tag] = fig
-        if tag == "main":
-            rows[name].update(fig)
-        log(f"  {name} {tag}: max_abs_err {err:.3g} (rtol, atol "
-            f"{TOL[name]})  "
-            f"device: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}); per call with launch: kernel {call:.4f} "
-            f"ms, plain {pcall:.4f} ms"
-            + ("" if library is None else
-               f"; SDPA ({library[1]}) {library[0]:.4f} ms")
-            + f"  [{io / 1e6:.1f} MB moved, {flops / 1e9:.2f} GFLOP]")
+    record = lambda *a, **kw: record_row(rows, dev, iters, *a, **kw)
 
     # threshold_gate: the sync's float32 delta and residual (exact)
     for n, tau, tag in ((gate_n, 1e-4, "main"), (1_000_003, 0.0, "tau0")):
@@ -1895,31 +1972,8 @@ def phase_train_kernels(dev, iters: int, gate_n: int = SMOLLM_PARAMS,
     del a, u, cot, grads, xs, h
 
     # flash_attention_fwd: RG-9B's MQA band, then SmolLM's causal GQA
-    for tag, (bb, hq, hkv, sq, dh, window) in (
-            ("main", rg_attn), ("smollm", (*sm_attn, None))):
-        q = torch.randn((bb, hq, sq, dh), generator=gen, device=dev).bfloat16()
-        k = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
-        v = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
-        got = flash_attention_fwd(q, k, v, True, window)
-        want = pair_fwd(q, k, v, True, window, None)
-        sync(dev)
-        err = float_err(got[:1], want[:1], "flash_attention_fwd")
-        err_l = float_err(got[1:], want[1:], "flash_lse")
-        pairs = band_pairs(sq, True, window) * bb * hq
-        io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
-        lib = sdpa_time(dev, q, k, v, True, window, iters)
-        kern = lambda: flash_attention_fwd(q, k, v, True, window)
-        record("flash_attention_fwd", kern, lambda: pair_fwd(
-            q, k, v, True, window, None), err, io, 4 * dh * pairs,
-            BF16_FLOPS_PER_S, max(1, iters // 4), tag, library=lib[:2])
-        fig = rows["flash_attention_fwd"]["shapes"][tag]
-        fig["lse_max_abs_err"] = err_l
-        fig["sm_mhz_power_w"] = {"kernel": clocks_under(kern, dev),
-                                 "library": clocks_under(lib[2], dev)}
-        log(f"    SM clock (MHz), power (W) under the kernel "
-            f"{fig['sm_mhz_power_w']['kernel']}, under SDPA "
-            f"{fig['sm_mhz_power_w']['library']}")
-        del q, k, v, got, want
+    flash_rows(dev, rows, iters, gen, (("main", rg_attn),
+                                       ("smollm", (*sm_attn, None))))
     return rows
 
 
@@ -3375,6 +3429,429 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
     return rec, launches
 
 
+# -- phase 19: LM prefill and cached decode -----------------------------------
+
+# (arch, depth (None: the full config), batch, prompt tokens, decode steps)
+SERVE_CELLS = (("gemma-7b", None, 4, 2048, 64),
+               ("recurrentgemma-9b", 3, 1, 4096, 32),
+               ("minicpm-2b", None, 4, 2048, 16),
+               ("command-r-35b", 4, 2, 2048, 16))
+# flash_attention_fwd at the dense decoders' prefill shapes, causal:
+# (B, Hq, Hkv, S, D, window)
+SERVE_FLASH = (("gemma_7b", (4, 16, 16, 2048, 256, None)),
+               ("minicpm_2b", (4, 36, 36, 2048, 64, None)),
+               ("command_r_35b", (2, 64, 8, 2048, 128, None)))
+SERVE_BOUND = 2e-2  # max |a - b| / max |b|: logits and cache tensors, bf16
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+class BlockRecord:
+    """While active, keeps every block's input and output x (`ins`,
+    `outs`), in the order the model applies the blocks (wraps
+    `models.model._apply_block`)."""
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+
+        self._m, self._real, self.ins, self.outs = M, M._apply_block, [], []
+
+        def keep(*args, **kw):
+            x, c = self._real(*args, **kw)
+            self.ins.append(args[2])
+            self.outs.append(x)
+            return x, c
+
+        M._apply_block = keep
+        return self
+
+    def __exit__(self, *exc):
+        self._m._apply_block = self._real
+
+
+def model_blocks(cfg, segments):
+    """(BlockDef, block tree) of every block of `segments` (params' or a
+    cache's), in the order the model applies them."""
+    return [(bd, t) for (pat, _), seg in zip(cfg.segments(), segments)
+            for period in seg for bd, t in zip(pat, period)]
+
+
+def first_parting(outs_a, outs_b, pick_a, pick_b, bound: float):
+    """(block index, error) of the first block whose outputs, picked by
+    `pick_a` / `pick_b`, differ by more than `bound`; None if none."""
+    for i, (a, b) in enumerate(zip(outs_a, outs_b)):
+        err = rel_err(pick_a(a), pick_b(b))
+        if err > bound:
+            return i, err
+    return None
+
+
+def sdpa_attention(q, k, v, causal=True, window=None, scale=None,
+                   q_offset=0):
+    """`scaled_dot_product_attention` in `flash_attention_fwd`'s place
+    (its o, and a dummy lse): the library's rounding, for the floor of
+    an end-to-end comparison."""
+    import torch
+    import torch.nn.functional as Fn
+
+    assert q_offset == 0
+    o = Fn.scaled_dot_product_attention(q, k, v, scale=scale,
+                                        **sdpa_args(q, causal, window))
+    return o, torch.zeros(q.shape[:3], device=q.device)
+
+
+def recorded_prefill(params, cfg, tokens, cache_len: int, attention=None):
+    """A prefill with every block's input and output recorded; with
+    `attention`, that stands in for `flash_attention_fwd`. Returns (the
+    record, last-position logits, the cache)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import model as M
+
+    real = ops.flash_attention_fwd
+    ops.flash_attention_fwd = attention or real
+    try:
+        with BlockRecord() as rec:
+            logits, cache = M.forward(params, cfg, tokens, mode="prefill",
+                                      cache_len=cache_len)
+    finally:
+        ops.flash_attention_fwd = real
+    last = logits[:, -1].clone()
+    return rec, last, cache
+
+
+def lockstep_prefill(params, cfg, rec, cache, cache_len: int):
+    """Each block with `cfg`'s kernels, fed the input that block had in
+    the recorded (plain) prefill: the larger relative error of its output
+    and of each of its cache tensors against that run's, block by
+    block."""
+    import torch
+    from repro_torch.models import model as M
+
+    pos = torch.arange(rec.ins[0].shape[1], device=rec.ins[0].device)
+    errs = []
+    for (bd, pp), (_, want_c), x, want in zip(
+            model_blocks(cfg, params["segments"]),
+            model_blocks(cfg, cache["segments"]), rec.ins, rec.outs):
+        y, c = M._apply_block(bd, pp, x, cfg, pos, prefill_len=cache_len)
+        errs.append(max([rel_err(y, want)] + [
+            rel_err(a, b) for a, b in zip(_leaves(c), _leaves(want_c))]))
+    return errs
+
+
+def lockstep_decode(params, cfg, rec, at: int, cache_len: int):
+    """Each block's decode at position `at`, against the recorded train
+    forward: the block builds its cache by a prefill over the input it
+    had there at positions < at, then decodes its input at `at`; the
+    relative error against that forward's output at `at`, block by
+    block."""
+    import torch
+    from repro_torch.models import model as M
+
+    dev = rec.ins[0].device
+    pos = torch.arange(at + 1, device=dev)
+    here = torch.tensor(at, dtype=torch.int32, device=dev)
+    errs = []
+    for (bd, pp), x, want in zip(model_blocks(cfg, params["segments"]),
+                                 rec.ins, rec.outs):
+        _, c = M._apply_block(bd, pp, x[:, :at], cfg, pos[:at],
+                              prefill_len=cache_len)
+        y, _ = M._apply_block(bd, pp, x[:, at:at + 1], cfg, here[None], c,
+                              here)
+        errs.append(rel_err(y[:, 0], want[:, at]))
+    return errs
+
+
+def decode_parting(params, cfg, seq, at: int, cache_len: int):
+    """Where a decode step at position `at` (after a prefill of the
+    tokens before it) and the train forward over seq[:, :at + 1] part:
+    the first block whose output at `at` differs beyond SERVE_BOUND."""
+    from repro_torch.models import model as M
+
+    _, cache = M.forward(params, cfg, seq[:, :at], mode="prefill",
+                         cache_len=cache_len)
+    with BlockRecord() as dec:
+        M.decode_step(params, cfg, seq[:, at:at + 1], cache)
+    with BlockRecord() as full:
+        M.forward(params, cfg, seq[:, :at + 1])
+    return first_parting(dec.outs, full.outs, lambda x: x[:, 0],
+                         lambda x: x[:, at], SERVE_BOUND)
+
+
+def attention_blocks(cfg, cache):
+    """(mixer, block cache) of every attention block, in order."""
+    return [(bd.mixer, c) for bd, c in model_blocks(cfg, cache["segments"])
+            if bd.mixer in ("attn", "swa")]
+
+
+def end_to_end(last, cache_leaves, rec, want_last, want_leaves, want_rec):
+    """A prefill against another (the plain one): last-position logits,
+    the largest cache tensor error and its index, the rows whose first
+    greedy token agrees, the first block parting beyond SERVE_BOUND."""
+    errs = [rel_err(a, b) for a, b in zip(cache_leaves, want_leaves)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    last_pos = lambda x: x[:, -1]
+    return {"last_logits": rel_err(last, want_last),
+            "cache": errs[worst], "cache_tensor": worst,
+            "first_tokens_equal": int((last.argmax(-1)
+                                       == want_last.argmax(-1)).sum()),
+            "parting": first_parting(rec.outs, want_rec.outs, last_pos,
+                                     last_pos, SERVE_BOUND)}
+
+
+def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
+               smoke: bool = False):
+    """One architecture through the serving entry points: `init_params`
+    (seed 19), `make_prefill_step` over a seeded numpy prompt (batch x
+    seq) into a cache of seq + steps positions, then `steps` greedy
+    `make_decode_step` calls; timed, the last decode step profiled.
+
+    Checks, each at SERVE_BOUND (max |a - b| / max |b|):
+    * lockstep against the plain versions: every block with the kernels,
+      fed the input it had in the prefill with every kernel's plain
+      version, against that block's output and each of its cache
+      tensors there (asserted);
+    * lockstep decode: at the first and the last decode step, each
+      block's decode (from the cache its own prefill of the earlier
+      positions built) against the train forward over the prompt and
+      the generated tokens at that position (asserted);
+    * end to end: the kernels-on prefill against the plain one (last
+      logits, every cache tensor, the first block where they part; the
+      first greedy token equal in every row, asserted), and each decode
+      step's logits against that train forward's at the same position
+      (the share of equal argmaxes; where the bound is not met, the
+      first block where a decode step and the forward part). Reported
+      beside the same prefill with PyTorch's
+      `scaled_dot_product_attention` in the kernel's place: over tens
+      of bf16 layers a rounding difference grows to the bound's size
+      whichever attention rounds it, so the lockstep checks hold each
+      block to the bound and these say how far the whole model drifts.
+    Returns (figures, the kernels' launches over the prefill and the
+    decode steps)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import (cache_attention,
+                                                     decode_attention)
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    cache_len = seq + steps
+    peak_reset(dev)
+    params = M.init_params(cfg, 19, dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    prefill = make_prefill_step(cfg, cache_len)
+    decode = make_decode_step(cfg)
+    # a short prefill and decode step first (library handles, first
+    # launches), neither timed nor counted
+    warm = min(seq, 128)
+    decode(params, tokens[:, :1], prefill(params, tokens[:, :warm])[1])
+    sync(dev)
+
+    # the main path: prefill and `steps` greedy decode steps
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    last = logits[:, -1].clone()
+    del logits
+    assert bool(torch.isfinite(last).all()), f"{arch}: non-finite logits"
+    prefill_leaves = [t.clone() for t in _leaves(cache["segments"])]
+    tok = last.argmax(-1, keepdim=True).to(torch.int32)
+    fed, outs, step_s = [], [], []
+
+    def one_step():
+        nonlocal tok
+        lg, _ = decode(params, tok, cache)
+        fed.append(tok)
+        outs.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+
+    for _ in range(steps - 2):
+        t0 = time.perf_counter()
+        one_step()
+        sync(dev)
+        step_s.append(time.perf_counter() - t0)
+    # the last two steps under the profiler, the second one traced
+    wall, ev = device_events(dev, one_step, warmup=one_step)
+    counts = launch_counts()
+    peak_main = peak_gb(dev)
+    assert len(outs) == steps and int(cache["pos"]) == cache_len
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    step_dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    step_launches = sum(e.count for e in ev)
+    top = [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in
+           sorted(ev, key=lambda e: -e.self_device_time_total)[:8]]
+
+    # the prefill against the plain versions: lockstep, then end to end
+    with torch.no_grad():
+        p_rec, p_last, p_cache = recorded_prefill(params, plain_cfg, tokens,
+                                                  cache_len)
+        lock_p = lockstep_prefill(params, cfg, p_rec, p_cache, cache_len)
+        p_leaves = _leaves(p_cache["segments"])
+        del p_cache
+        k_rec, k_last, k_cache = recorded_prefill(params, cfg, tokens,
+                                                  cache_len)
+        rerun_equal = bool(torch.equal(k_last, last))
+        del k_cache
+        e2e = end_to_end(last, prefill_leaves, k_rec, p_last, p_leaves,
+                         p_rec)
+        del k_rec
+        s_rec, s_last, s_cache = recorded_prefill(params, cfg, tokens,
+                                                  cache_len, sdpa_attention)
+        floor = end_to_end(s_last, _leaves(s_cache["segments"]), s_rec,
+                           p_last, p_leaves, p_rec)
+        del s_rec, s_cache, p_rec, p_leaves, prefill_leaves
+    assert e2e["first_tokens_equal"] == batch, (
+        f"{arch}: the first greedy token of the kernels-on prefill differs "
+        f"from the plain one's in {batch - e2e['first_tokens_equal']} rows; "
+        f"first block parting (index, error): {e2e['parting']}")
+    assert max(lock_p) <= SERVE_BOUND, (
+        f"{arch}: a block with kernels differs from its plain version on "
+        f"the same input by {max(lock_p):.3g} (bound {SERVE_BOUND}) at "
+        f"block {lock_p.index(max(lock_p))}")
+
+    # decode against the train forward over the prompt and the tokens fed
+    seq_all = torch.cat([tokens] + fed, 1)
+    with torch.no_grad():
+        with BlockRecord() as t_rec:
+            full = M.forward(params, cfg, seq_all)
+        tf_errs = [rel_err(o, full[:, seq + i]) for i, o in enumerate(outs)]
+        agree = float(torch.stack([
+            o.argmax(-1) == full[:, seq + i].argmax(-1)
+            for i, o in enumerate(outs)]).float().mean())
+        del full
+        lock_d = {i: lockstep_decode(params, cfg, t_rec, seq + i, cache_len)
+                  for i in (0, steps - 1)}
+        del t_rec
+        worst = max(range(steps), key=tf_errs.__getitem__)
+        tf_part = (decode_parting(params, cfg, seq_all, seq + worst,
+                                  cache_len)
+                   if tf_errs[worst] > SERVE_BOUND else None)
+    lock_d_max = max(max(v) for v in lock_d.values())
+    assert lock_d_max <= SERVE_BOUND, (
+        f"{arch}: a block's decode differs from the train forward on the "
+        f"same inputs by {lock_d_max:.3g} (bound {SERVE_BOUND}): {lock_d}")
+
+    # one layer's decode attention over its full cache, and the f32 head
+    gen = torch.Generator(device=dev).manual_seed(23)
+    attn = attention_blocks(cfg, cache)
+    mixer, blk = attn[0]
+    kc, vc = blk["k"], blk["v"]
+    ln = kc.shape[2]
+    q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
+                    device=dev).to(cfg.torch_dtype)
+    scale = cfg.attn_scale or cfg.hd ** -0.5
+    if mixer == "swa" and ln == cfg.window:  # the rolling buffer
+        valid = torch.ones((batch, ln), dtype=torch.bool, device=dev)
+        attend = lambda: cache_attention(q, kc, vc, valid, scale)
+    else:
+        length = torch.full((batch,), cache_len, dtype=torch.int32,
+                            device=dev)
+        window = cfg.window if mixer == "swa" else None
+        attend = lambda: decode_attention(q, kc, vc, length, window, scale)
+    att_ms = device_ms(attend, dev, 10)
+    x1 = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                     device=dev).to(cfg.torch_dtype)
+    head_ms = device_ms(lambda: M._logits(params, cfg, x1), dev, 5)
+
+    param_bytes = n_params * params["embed"].element_size()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(cache["segments"]))
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    share = lambda ms: ms / step_dev_ms if step_dev_ms else None
+    fig = {"layers": cfg.num_layers, "params": n_params, "batch": batch,
+           "prompt": seq, "decode_steps": steps, "cache_len": cache_len,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": batch * seq / prefill_s,
+           "decode_step_ms": [x * 1e3 for x in step_s],
+           "decode_median_ms": steady * 1e3,
+           "decode_tokens_per_s": batch / steady,
+           "decode_step_profile": {"wall_ms": wall * 1e3,
+                                   "device_ms": step_dev_ms,
+                                   "launches": step_launches, "top": top},
+           "decode_step_bound_ms": (param_bytes + cache_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "decode_attention_ms": att_ms, "attention_layers": len(attn),
+           "decode_attention_share": share(att_ms * len(attn)),
+           "head_ms": head_ms, "head_share": share(head_ms),
+           "kv_cache_gb": cache_bytes / 1e9, "peak_gb_main": peak_main,
+           "lockstep_prefill_max": max(lock_p),
+           "lockstep_decode_max": {str(i): max(v) for i, v in lock_d.items()},
+           "end_to_end_vs_plain": e2e, "sdpa_floor_vs_plain": floor,
+           "rerun_last_logits_equal": rerun_equal,
+           "teacher_forced": {"max_rel_err": max(tf_errs),
+                              "worst_step": worst,
+                              "bound_met": tf_errs[worst] <= SERVE_BOUND,
+                              "parting": tf_part,
+                              "argmax_agreement": agree},
+           "peak_gb": peak_gb(dev)}
+    met = lambda e: "met" if e <= SERVE_BOUND else "NOT met"
+    log(f"  {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
+        f"batch {batch} x {seq}, cache_len {cache_len} (KV and state "
+        f"{cache_bytes / 1e9:.2f} GB): prefill {prefill_s * 1e3:.1f} ms = "
+        f"{batch * seq / prefill_s:.0f} tokens/s; decode median "
+        f"{steady * 1e3:.2f} ms a step = {batch / steady:.1f} tokens/s at "
+        f"batch {batch} (bound {fig['decode_step_bound_ms']:.2f} ms: "
+        f"weights and cache read once); peak {peak_main:.1f} GB (the "
+        f"checks' {fig['peak_gb']:.1f})")
+    log(f"    lockstep, each block with kernels vs plain on the same input: "
+        f"max {max(lock_p):.2e}; each block's decode vs the train forward "
+        f"at steps 0 and {steps - 1}: max {lock_d_max:.2e} (bound "
+        f"{SERVE_BOUND}, asserted)")
+    log(f"    end to end vs plain (bound {SERVE_BOUND} reported): last logits "
+        f"{e2e['last_logits']:.2e} ({met(e2e['last_logits'])}; SDPA in the "
+        f"kernel's place {floor['last_logits']:.2e}), cache max "
+        f"{e2e['cache']:.2e} at tensor {e2e['cache_tensor']} "
+        f"({met(e2e['cache'])}; SDPA {floor['cache']:.2e}), first greedy "
+        f"tokens equal in {e2e['first_tokens_equal']} of {batch} rows "
+        f"(SDPA {floor['first_tokens_equal']}), first block parting "
+        f"{e2e['parting']} (SDPA {floor['parting']}); the re-run's logits "
+        f"equal the main path's: {rerun_equal}")
+    log(f"    decode vs the teacher-forced forward: max rel err "
+        f"{max(tf_errs):.2e} at step {worst} ({met(max(tf_errs))}; first "
+        f"block parting {tf_part}), argmax agreement {agree:.4f}")
+    log(f"    one decode step profiled: wall {wall * 1e3:.2f} ms, device "
+        f"{step_dev_ms:.2f} ms in {step_launches} launches; decode "
+        f"attention {att_ms:.4f} ms a layer x {len(attn)} "
+        f"({mixer}, {ln} slots) = share "
+        f"{fig['decode_attention_share']}; float32 head {head_ms:.3f} ms "
+        f"(share {fig['head_share']})")
+    for name, ms, n in top[:5]:
+        log(f"      {ms:9.3f} ms {n:5d}x  {name}")
+    return fig, counts
+
+
+def phase_serve_lm(dev, cells=SERVE_CELLS, smoke: bool = False):
+    """Every cell of `cells` through `serve_cell`: (figures by
+    architecture, the launches summed over the cells' main paths)."""
+    import torch
+
+    figs, total = {}, {}
+    for arch, depth, batch, seq, steps in cells:
+        figs[arch], counts = serve_cell(dev, arch, depth, batch, seq, steps,
+                                        smoke)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return figs, total
+
+
 def main() -> int:
     import torch
 
@@ -3591,6 +4068,17 @@ def main() -> int:
     resume, paths["train_smollm_resume"] = phase_resume(dev)
     torch.cuda.empty_cache()
 
+    log("phase 19: LM prefill and cached decode on the serving entry "
+        "points: Gemma-7B (full config) 4 x 2048 and 64 greedy steps; "
+        "RecurrentGemma-9B at depth 3, 1 x 4096 and 32 steps (past its "
+        "window); MiniCPM-2B (full config) 4 x 2048 and 16 steps; "
+        "Command-R-35B at depth 4, 2 x 2048 and 16 steps; then "
+        "flash_attention_fwd at the three dense decoders' prefill shapes")
+    serve_lm, paths["serve_lm"] = phase_serve_lm(dev)
+    flash_rows(dev, rows, 20, torch.Generator(device=dev).manual_seed(2029),
+               SERVE_FLASH, clocks=False)
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -3607,7 +4095,8 @@ def main() -> int:
         "launch of each wheel kernel a batched cycle, as the single "
         "engine's); serve: phase 16; sharded: phase 17's ranks, summed, its "
         "control plane too; control: phase 18's drills with kernels; "
-        "train_smollm_resume: phase 18's two run_plain runs): "
+        "train_smollm_resume: phase 18's two run_plain runs; serve_lm: phase "
+        "19's prefills and decode steps): "
         + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
@@ -3617,7 +4106,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm})}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -44,7 +44,7 @@ class ModelConfig:
     vocab_size: int
     pattern: Tuple[BlockDef, ...] = (BlockDef("attn", "dense"),)
     head_dim: int = 0  # 0 -> d_model // num_heads
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_unit' (1 + w) | 'layernorm'
     activation: str = "silu"
     gated_mlp: bool = True
     rope_theta: float = 10_000.0

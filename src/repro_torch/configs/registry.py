@@ -20,7 +20,8 @@ ARCH_IDS = (
     "whisper-large-v3",
     "llama-3.2-vision-11b",
 )
-PORTED = ("recurrentgemma-9b", "smollm-135m")
+PORTED = ("recurrentgemma-9b", "smollm-135m", "command-r-35b", "minicpm-2b",
+          "gemma-7b")
 
 
 def _module(arch: str):

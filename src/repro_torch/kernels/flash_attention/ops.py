@@ -1,5 +1,6 @@
 """`flash_attention_fwd` (the CUDA kernels for CUDA tensors, the plain
-pair schedule for CPU tensors) and the differentiable `flash_attention`.
+pair schedule for CPU tensors), the differentiable `flash_attention`,
+and `decode_attention`, one new token against a KV cache.
 
 Replaces the Pallas kernel `flash_attention_fwd`
 (src/repro/kernels/flash_attention/flash_attention.py:101). CUDA source:
@@ -21,6 +22,11 @@ The backward is the plain FA2 pair schedule (`xla_ref.pair_bwd`) from
 the saved (q, k, v, o, lse), as the reference recomputes its backward
 through its XLA path (src/repro/kernels/flash_attention/ops.py:57); a
 hand-written backward kernel is later work.
+
+`decode_attention` (and `cache_attention`, its core under any mask) is
+plain PyTorch in float32, as the reference computes it in XLA outside
+Pallas (src/repro/kernels/flash_attention/ops.py:68): one query row a
+head against a cache, memory-bound.
 """
 from __future__ import annotations
 
@@ -112,3 +118,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device."""
     return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
                                  use_kernel)
+
+
+def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, valid: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """One query token a head, q (B, Hq, 1, D), against a cache (B, Hkv,
+    L, D) where `valid` (B, L) is True; float32 scores, softmax and
+    weighted sum, the result in q's dtype."""
+    b, hq, _, dh = q.shape
+    hkv = k_cache.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, dh)
+    sc = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * scale
+    sc = torch.where(valid[:, None, None, :], sc, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return o.reshape(b, hq, 1, v_cache.shape[-1]).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode attention over a KV cache: q (B, Hq, 1, D),
+    caches (B, Hkv, S, D) -> (B, Hq, 1, D). Masks positions >= length
+    (B,) (all S when None) and, with a window, positions < length -
+    window. The new token's k and v must already be in the cache."""
+    s = k_cache.shape[2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    kpos = torch.arange(s, device=q.device)[None, :]
+    if length is None:
+        length = torch.full((q.shape[0],), s, dtype=torch.int32,
+                            device=q.device)
+    valid = kpos < length[:, None]
+    if window is not None:
+        valid &= kpos >= length[:, None] - window
+    return cache_attention(q, k_cache, v_cache, valid, scale)

@@ -73,7 +73,11 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
 
 
 def _scan(a, u, h0, use_kernel: bool, reverse: bool = False):
-    return (rglru_scan if use_kernel else linear_scan_reference)(
+    """The kernel at T >= 8 and W >= 8 (the reference's dispatch,
+    src/repro/kernels/rglru/ops.py:27); the plain scan otherwise, e.g. a
+    decode step's T = 1."""
+    kernel = use_kernel and a.shape[1] >= 8 and a.shape[2] >= 8
+    return (rglru_scan if kernel else linear_scan_reference)(
         a, u, h0, reverse)
 
 
@@ -109,6 +113,6 @@ def linear_scan(a: torch.Tensor, u: torch.Tensor,
                 h0: Optional[torch.Tensor] = None, use_kernel: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t h_{t-1} + u_t, differentiable in a, u and h0. Returns
-    (h (B, T, W), h_last (B, W)). `use_kernel=False` takes the plain scan
-    on every device (forward and backward)."""
+    (h (B, T, W), h_last (B, W)). `use_kernel=False`, or T < 8 or W < 8,
+    takes the plain scan on every device (forward and backward)."""
     return _LinearScan.apply(a, u, h0, use_kernel)

@@ -1,11 +1,13 @@
-"""The train step used by `launch.train` (the training form of
-`repro.launch.steps`)."""
+"""Step builders (those of `repro.launch.steps`): the train step used by
+`launch.train`, and the serving steps, prefill and cached decode."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import lm_loss
+from repro_torch.models.model import decode_step, forward, lm_loss
 from repro_torch.optim import schedules
 from repro_torch.optim.adamw import AdamWConfig, apply_update
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -33,3 +35,36 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
 
     return train_step
 
+
+def _on(params, tokens) -> torch.Tensor:
+    """`tokens` (a tensor or an int array) on the device of `params`."""
+    return torch.as_tensor(tokens, device=params["embed"].device)
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
+    """prefill(params, tokens) -> logits (no `cache_len`) or (logits, a
+    decode cache of `cache_len` positions). Runs without autograd on the
+    params' device (CUDA as `init_params` makes them, unless the caller
+    made them elsewhere); tokens are moved there."""
+
+    @torch.no_grad()
+    def prefill(params, tokens, frontend_embeds=None):
+        tokens = _on(params, tokens)
+        if cache_len is None:
+            return forward(params, cfg, tokens, frontend_embeds, mode="train")
+        return forward(params, cfg, tokens, frontend_embeds, mode="prefill",
+                       cache_len=cache_len)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    """serve_step(params, token (B, 1), cache) -> (logits (B, 1, V),
+    cache): `models.model.decode_step` without autograd, the cache
+    updated in place."""
+
+    @torch.no_grad()
+    def serve_step(params, token, cache):
+        return decode_step(params, cfg, _on(params, token), cache)
+
+    return serve_step

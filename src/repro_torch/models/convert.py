@@ -1,5 +1,5 @@
-"""Parameter trees between the reference (JAX, numpy leaves) and the
-port.
+"""Parameter trees and decode caches between the reference (JAX, numpy
+leaves) and the port.
 
 The reference stacks each segment's periods on a leading axis (one
 ``lax.scan`` per segment); the port keeps one tensor per period. Both
@@ -32,37 +32,62 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _segments_from_jax(segs, cfg: ModelConfig, conv):
+    """Each segment's stacked leaves (a leading period axis) as a list
+    over its periods of a tuple of block trees."""
+    host = lambda a: a if isinstance(a, torch.Tensor) else np.asarray(a)
+    return [[tuple(tree_map(lambda a, i=i: conv(host(a)[i]), seg[j])
+                   for j in range(len(pat)))
+             for i in range(n)]
+            for seg, (pat, n) in zip(segs, cfg.segments())]
+
+
+def _segments_to_numpy(segs, cfg: ModelConfig):
+    """The inverse: periods stacked on a leading axis, as numpy."""
+    return [tuple(tree_map(lambda *ts: np.stack([_to_numpy(t) for t in ts]),
+                           *[period[j] for period in seg])
+                  for j in range(len(pat)))
+            for seg, (pat, _) in zip(segs, cfg.segments())]
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cpu") -> Dict[str, Any]:
     """The port's parameters from the reference's tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, params)``, or CPU tensors;
-    a block's leaves may be dicts or, as read from a checkpoint, lists)."""
-    host = lambda a: a if isinstance(a, torch.Tensor) else np.asarray(a)
-    conv = lambda a: _to_torch(host(a), device)
-    segments = []
-    for seg, (pat, n) in zip(tree["segments"], cfg.segments()):
-        segments.append([
-            tuple(tree_map(lambda a, i=i: conv(host(a)[i]), seg[j])
-                  for j in range(len(pat)))
-            for i in range(n)])
+    a block's leaves may be dicts or, as read from a checkpoint, lists).
+    Every leaf carries over, LayerNorm's bias ``b`` among them."""
+    conv = lambda a: _to_torch(
+        a if isinstance(a, torch.Tensor) else np.asarray(a), device)
     return {"embed": conv(tree["embed"]),
             "final_norm": tree_map(conv, tree["final_norm"]),
-            "segments": segments}
+            "segments": _segments_from_jax(tree["segments"], cfg, conv)}
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
     """The reference's layout (periods stacked on a leading axis) as numpy
     arrays; bfloat16 leaves are widened to float32."""
-    segments = []
-    for seg, (pat, _) in zip(params["segments"], cfg.segments()):
-        segments.append(tuple(
-            tree_map(lambda *ts: np.stack([_to_numpy(t) for t in ts]),
-                     *[period[j] for period in seg])
-            for j in range(len(pat))))
     return {"embed": _to_numpy(params["embed"]),
             "final_norm": tree_map(_to_numpy, params["final_norm"]),
-            "segments": segments}
+            "segments": _segments_to_numpy(params["segments"], cfg)}
+
+
+def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                   device="cpu") -> Dict[str, Any]:
+    """The port's decode cache from the reference's (``{"pos": int32
+    scalar, "segments": each period stacked on a leading axis}``, leaves
+    as numpy arrays)."""
+    conv = lambda a: _to_torch(np.asarray(a), device)
+    return {"pos": conv(np.asarray(tree["pos"], np.int32)),
+            "segments": _segments_from_jax(tree["segments"], cfg, conv)}
+
+
+def cache_to_numpy(cache: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, Any]:
+    """The port's decode cache in the reference's layout as numpy arrays
+    ("pos" an int32 scalar); bfloat16 leaves are widened to float32."""
+    return {"pos": np.int32(cache["pos"].item()),
+            "segments": _segments_to_numpy(cache["segments"], cfg)}
 
 
 def _nest(pairs) -> Dict[str, Any]:

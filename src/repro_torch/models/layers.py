@@ -1,13 +1,16 @@
 """Model building blocks, functional PyTorch (params are plain dicts):
 the subset of `repro.models.layers` that the ported architectures run
-(SmolLM-135M, RecurrentGemma-9B).
+(SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B, Command-R-35B).
 
-  * norms: RMSNorm (with optional Gemma-style 1 + w);
+  * norms: RMSNorm (with optional Gemma-style 1 + w), LayerNorm;
   * rotary embeddings;
   * GQA/MQA self-attention, causal or sliding-window, through the
-    `flash_attention` kernel (training / prefill form; no decode cache);
+    `flash_attention` kernel over a sequence, and against a decode cache
+    (`decode_attention`, or the rolling buffer of a sliding window) for
+    one new token;
   * gated or plain SiLU/GeLU MLPs;
-  * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel.
+  * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel
+    over a sequence, with its (h, conv history) state for decode.
 
 Weights keep the reference's (in, out) layout, so a projection is
 ``x @ w``. Matmuls run in the activation dtype with float32 accumulation
@@ -15,9 +18,8 @@ Weights keep the reference's (in, out) layout, so a projection is
 output, as the reference's ``preferred_element_type`` + cast does);
 norms, softmax and gates in float32.
 
-Not ported yet (ROADMAP.md §A8): LayerNorm, cross-attention, MLA,
-mixture of experts, xLSTM mixers and every decode cache; each raises
-`NotImplementedError`.
+Not ported yet (ROADMAP.md §A8): cross-attention, MLA, mixture of
+experts and the xLSTM mixers; each raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (cache_attention,
+                                                 decode_attention,
+                                                 flash_attention)
 from repro_torch.kernels.rglru import linear_scan, rglru_gates
 
 Params = Dict[str, Any]
@@ -55,20 +59,37 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     return (y * scale).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+NORMS = ("rmsnorm", "rmsnorm_unit", "layernorm")
+
+
 def apply_norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
     if kind == "rmsnorm":
         return rms_norm(x, p["w"])
     if kind == "rmsnorm_unit":
         return rms_norm(x, p["w"], unit_offset=True)
-    raise NotImplementedError(f"norm {kind!r} is {NOT_PORTED}")
+    if kind == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
+    raise ValueError(kind)
 
 
 def init_norm(d: int, kind: str, dtype, device) -> Params:
+    if kind == "layernorm":
+        return {"w": torch.ones((d,), dtype=dtype, device=device),
+                "b": torch.zeros((d,), dtype=dtype, device=device)}
     if kind == "rmsnorm_unit":
         return {"w": torch.zeros((d,), dtype=dtype, device=device)}
     if kind == "rmsnorm":
         return {"w": torch.ones((d,), dtype=dtype, device=device)}
-    raise NotImplementedError(f"norm {kind!r} is {NOT_PORTED}")
+    raise ValueError(kind)
 
 
 # -- rotary embeddings ---------------------------------------------------
@@ -111,10 +132,20 @@ def _proj(x, w, b=None):
 
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
-              cache: Optional[Params] = None) -> torch.Tensor:
-    """GQA self-attention over x (B, S, d) -> (B, S, d)."""
-    if cache is not None:
-        raise NotImplementedError(f"attention decode caches are {NOT_PORTED}")
+              cache: Optional[Params] = None,
+              cache_pos: Optional[torch.Tensor] = None):
+    """GQA self-attention over x (B, S, d) -> (y (B, S, d), kv).
+
+    Without a cache: `flash_attention` over the sequence; kv is
+    ``{"k", "v"}`` (B, Hkv, S, Dh), the rotated keys and values it
+    attended over (what a prefill cache keeps). With a cache ``{"k",
+    "v"}`` (B, Hkv, L, Dh) and the 0-d position `cache_pos` of the one
+    new token (S = 1): its k and v are written at slot ``cache_pos % L``
+    in place, it attends over the cache, and kv is that same dict. A
+    window's rolling buffer (L == window) holds at slot i the position
+    ``pos - ((pos - i) mod L)``, valid iff >= 0; any other cache is
+    masked by `decode_attention` at length ``pos + 1`` and the window.
+    """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, hq, dh).transpose(1, 2)
@@ -127,9 +158,28 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     scale = cfg.attn_scale if cfg.attn_scale else dh ** -0.5
-    o = flash_attention(q, k, v, causal, window, scale, 0, cfg.use_kernels)
+    if cache is None:
+        o = flash_attention(q, k, v, causal, window, scale, 0, cfg.use_kernels)
+        kv = {"k": k, "v": v}
+    else:
+        if s != 1:
+            raise ValueError(f"attention: a decode step takes one token, "
+                             f"got {s}")
+        kc, vc = cache["k"], cache["v"]
+        ln = kc.shape[2]
+        slot = torch.remainder(cache_pos, ln).reshape(1).long()
+        kc.index_copy_(2, slot, k)
+        vc.index_copy_(2, slot, v)
+        if window is not None and ln == window:
+            slots = torch.arange(ln, device=kc.device)
+            valid = cache_pos - torch.remainder(cache_pos - slots, ln) >= 0
+            o = cache_attention(q, kc, vc, valid.expand(b, ln), scale)
+        else:
+            length = (cache_pos + 1).to(torch.int32).expand(b)
+            o = decode_attention(q, kc, vc, length, window, scale)
+        kv = cache
     y = o.transpose(1, 2).reshape(b, s, hq * dh)
-    return _proj(y, p["wo"], p.get("bo"))
+    return _proj(y, p["wo"], p.get("bo")), kv
 
 
 # -- MLP -------------------------------------------------------------------
@@ -180,23 +230,28 @@ def init_rglru_block(gen, cfg, dtype) -> Params:
     }
 
 
-def _causal_conv4(x: torch.Tensor, w: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, 4 taps, zero history. x: (B, S, W)."""
+def _causal_conv4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, 4 taps. x: (B, S, W); state: the (B, 3, W)
+    history before x (zeros when None). Returns (y, the last 3 inputs)."""
+    hist = x.new_zeros((x.shape[0], 3, x.shape[2])) if state is None \
+        else state
+    xp = torch.cat([hist, x], dim=1)  # (B, S + 3, W)
     s = x.shape[1]
-    xp = torch.cat([x.new_zeros((x.shape[0], 3, x.shape[2])), x], dim=1)
     y = sum(xp[:, 3 - i: s + 3 - i] * w[3 - i][None, None, :]
             for i in range(4))
-    return y + b[None, None, :]
+    return y + b[None, None, :], xp[:, -3:].clone()  # not a view of xp
 
 
 def rglru_block(p: Params, x: torch.Tensor, cfg,
-                cache: Optional[Params] = None) -> torch.Tensor:
-    """The RG-LRU mixer over x (B, S, d) -> (B, S, d)."""
-    if cache is not None:
-        raise NotImplementedError(f"RG-LRU decode caches are {NOT_PORTED}")
+                cache: Optional[Params] = None, return_state: bool = False):
+    """The RG-LRU mixer over x (B, S, d) -> (y (B, S, d), state). With a
+    cache ``{"h": (B, W), "conv": (B, 3, W)}`` the scan and the conv
+    start from it; state is the new ``{"h", "conv"}`` when a cache was
+    given or `return_state` is set (a prefill), else None."""
     gate = _act(matmul(x, p["w_gate"]), "gelu")
-    u = _causal_conv4(matmul(x, p["w_x"]), p["conv_w"], p["conv_b"])
+    u, conv = _causal_conv4(matmul(x, p["w_x"]), p["conv_w"], p["conv_b"],
+                            None if cache is None else cache["conv"])
     b_, s_, w_ = u.shape
     nb, bw = p["rg_wa"].shape[0], p["rg_wa"].shape[1]
     ub = u.reshape(b_, s_, nb, bw).float()
@@ -205,5 +260,8 @@ def rglru_block(p: Params, x: torch.Tensor, cfg,
     i = torch.einsum("bsnw,nwv->bsnv", ub, p["rg_wx"].float()
                      ).reshape(b_, s_, w_).to(u.dtype)
     a_t, u_t = rglru_gates(u, r, i, p["log_lambda"], cfg.rglru_c)
-    h, _ = linear_scan(a_t, u_t, None, cfg.use_kernels)
-    return matmul(h * gate, p["w_out"])
+    h, h_last = linear_scan(a_t, u_t, None if cache is None else cache["h"],
+                            cfg.use_kernels)
+    y = matmul(h * gate, p["w_out"])
+    keep = cache is not None or return_state
+    return y, ({"h": h_last, "conv": conv} if keep else None)

@@ -1,8 +1,9 @@
 """The port's trainer against the reference's, on the CPU.
 
-`repro_torch.launch.train.run_plain` (3 steps, both ported smoke
-configs) and `run_threshold` (SmolLM smoke, 2 pods, compress tau 1e-3,
-max inner 3, 6 steps) are held against the JAX package's `run_plain` /
+`repro_torch.launch.train.run_plain` (3 steps; the SmolLM,
+RecurrentGemma and Command-R (LayerNorm) smoke configs) and
+`run_threshold` (SmolLM smoke, 2 pods, compress tau 1e-3, max inner 3,
+6 steps) are held against the JAX package's `run_plain` /
 `run_threshold` with the same arguments. The port starts from the
 reference's own `init_params(cfg, PRNGKey(seed))` converted by
 `params_from_jax`, and both draw the same `SyntheticLM` batches. The
@@ -87,7 +88,8 @@ def _reference_init(arch, args):
     return params_from_jax(tree, get_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-9b",
+                                  "command-r-35b"])
 def test_run_plain_matches_reference(monkeypatch, arch):
     args = _args(arch=arch, steps=3, batch=2, seq_len=32)
     want_loss, (step_calls,) = _run_reference(monkeypatch, r_train.run_plain,
