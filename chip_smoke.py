@@ -162,22 +162,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      and 64 greedy decode steps; RecurrentGemma-9B at full width, depth
      3, 1 x 4,096 and 32 steps (its 2,048-token rolling buffer wraps);
      MiniCPM-2B (full config) 4 x 2,048 and 16 steps; Command-R-35B at
-     full width, depth 4, 2 x 2,048 and 16 steps (LayerNorm). Held at 2e-2
-     relative (max |a - b| / max |b|), block by block in lockstep: each
-     block with its kernels against its plain version on the same input
-     (output and cache tensors), and each block's decode at the first
-     and last step against the train forward over the prompt and the
-     generated tokens; the first greedy tokens equal to the plain
-     prefill's. End to end (reported, beside PyTorch's SDPA in the
-     kernel's place): the prefill against the plain one, each decode
-     step against the train forward, the first block where they part,
-     the argmax agreement. Prefill ms and tokens/s, decode ms a step and
-     tokens/s, one decode step profiled, one layer's decode attention
-     and the float32 head timed, peak memory. Then
-     `flash_attention_fwd` at the dense decoders' prefill shapes (Gemma
+     full width, depth 4, 2 x 2,048 and 16 steps (LayerNorm);
+     Whisper-large-v3 (full config: 32 encoder and 32 decoder layers)
+     over 8 x 1,500 seeded frontend embeddings (30 s of audio a row), a
+     128-token prompt and 64 steps; Llama-3.2-Vision-11B (full config,
+     40 layers, a gated cross-attention block every 5th, its gates set
+     to 1) 4 x 2,048 with 4,100 vision embeddings a row, 32 steps. Held
+     at 2e-2 relative (max |a - b| / max |b|), block by block in
+     lockstep: each block, an encoder's too, with its kernels against
+     its plain version on the same input and memory (output and cache
+     tensors), and each decoder block's decode at the first and last
+     step against the train forward over the prompt and the generated
+     tokens; the first greedy tokens equal to the plain prefill's. End
+     to end (reported, beside PyTorch's SDPA in the kernel's place): the
+     prefill against the plain one, each decode step against the train
+     forward, the first block where they part, the argmax agreement.
+     Prefill ms and tokens/s, decode ms a step and tokens/s, one decode
+     step profiled (and a frontend cell's prefill), one layer's decode
+     attention (and cross-attention) and the float32 head timed, peak
+     memory. Then
+     `flash_attention_fwd` at the serving cells' prefill shapes (Gemma
      (4, 16 / 16, 2048, 256), MiniCPM (4, 36 / 36, 2048, 64), Command-R
-     (2, 64 / 8, 2048, 128), causal) against the plain pair schedule,
-     timed beside SDPA;
+     (2, 64 / 8, 2048, 128), Whisper's decoder (8, 20 / 20, 128, 64),
+     causal; non-causal, Sq != Skv, ragged key edges: Whisper's encoder
+     (8, 20 / 20, 1,500 x 1,500, 64), its cross-attention (128 x 1,500)
+     and Llama-Vision's (4, 32 / 8, 2,048 x 4,100, 128)) against the
+     plain pair schedule, timed beside SDPA;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
@@ -274,7 +284,7 @@ PATH_KERNELS = {
     # phase 18: the elastic drills with kernels; run_plain with resume
     "control": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
     "train_smollm_resume": {"flash_attention_fwd"},
-    # phase 19: the four serving cells' prefills and decode steps
+    # phase 19: the six serving cells' prefills and decode steps
     "serve_lm": {"flash_attention_fwd", "rglru_scan"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
@@ -1728,11 +1738,13 @@ def float_err(got, want, tol_name: str) -> float:
     return err
 
 
-def band_pairs(sq: int, causal: bool, window) -> int:
-    """Visible (query, key) pairs of one head at q_offset 0."""
+def band_pairs(sq: int, causal: bool, window, skv: int = None) -> int:
+    """Visible (query, key) pairs of one head at q_offset 0 over `skv`
+    keys (Sq when None)."""
+    skv = sq if skv is None else skv
     tot = 0
     for i in range(sq):
-        hi = i if causal else sq - 1
+        hi = min(i, skv - 1) if causal else skv - 1
         lo = max(0, i - window + 1) if window else 0
         tot += hi - lo + 1
     return tot
@@ -1849,33 +1861,37 @@ def record_row(rows: dict, dev, iters: int, name, kernel, plain, err, io,
 def flash_rows(dev, rows: dict, iters: int, gen, cases,
                clocks: bool = True) -> None:
     """`flash_attention_fwd` o and lse against the plain pair schedule on
-    bf16 inputs drawn from `gen`, causal, at each (tag, (B, Hq, Hkv, S,
-    D, window)) of `cases`, timed beside its bound (operations at the
-    bf16 tensor-core rate) and SDPA; with `clocks`, the SM clock and
-    power under the kernel and under SDPA."""
+    bf16 inputs drawn from `gen` at each (tag, shape) of `cases`: (B, Hq,
+    Hkv, S, D, window), causal over Skv = S keys, or (B, Hq, Hkv, Sq, D,
+    window, Skv, causal); timed beside its bound (operations at the bf16
+    tensor-core rate) and SDPA; with `clocks`, the SM clock and power
+    under the kernel and under SDPA."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      pair_fwd)
 
-    for tag, (bb, hq, hkv, sq, dh, window) in cases:
-        q = torch.randn((bb, hq, sq, dh), generator=gen, device=dev).bfloat16()
-        k = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
-        v = torch.randn((bb, hkv, sq, dh), generator=gen, device=dev).bfloat16()
-        got = flash_attention_fwd(q, k, v, True, window)
-        want = pair_fwd(q, k, v, True, window, None)
+    for tag, (bb, hq, hkv, sq, dh, window, *rest) in cases:
+        skv, causal = rest or (sq, True)
+        draw = lambda *shape: torch.randn(shape, generator=gen,
+                                          device=dev).bfloat16()
+        q = draw(bb, hq, sq, dh)
+        k = draw(bb, hkv, skv, dh)
+        v = draw(bb, hkv, skv, dh)
+        got = flash_attention_fwd(q, k, v, causal, window)
+        want = pair_fwd(q, k, v, causal, window, None)
         sync(dev)
         err = float_err(got[:1], want[:1], "flash_attention_fwd")
         err_l = float_err(got[1:], want[1:], "flash_lse")
-        pairs = band_pairs(sq, True, window) * bb * hq
+        pairs = band_pairs(sq, causal, window, skv) * bb * hq
         io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
-        lib = sdpa_time(dev, q, k, v, True, window, iters)
-        kern = lambda: flash_attention_fwd(q, k, v, True, window)
+        lib = sdpa_time(dev, q, k, v, causal, window, iters)
+        kern = lambda: flash_attention_fwd(q, k, v, causal, window)
         record_row(rows, dev, iters, "flash_attention_fwd", kern,
-                   lambda: pair_fwd(q, k, v, True, window, None), err, io,
+                   lambda: pair_fwd(q, k, v, causal, window, None), err, io,
                    4 * dh * pairs, BF16_FLOPS_PER_S, max(1, iters // 4), tag,
                    library=lib[:2])
         fig = rows["flash_attention_fwd"]["shapes"][tag]
-        fig["shape"] = [bb, hq, hkv, sq, dh, window]
+        fig["shape"] = [bb, hq, hkv, sq, dh, window, skv, causal]
         fig["lse_max_abs_err"] = err_l
         if clocks:
             fig["sm_mhz_power_w"] = {"kernel": clocks_under(kern, dev),
@@ -3431,16 +3447,30 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
 
 # -- phase 19: LM prefill and cached decode -----------------------------------
 
-# (arch, depth (None: the full config), batch, prompt tokens, decode steps)
-SERVE_CELLS = (("gemma-7b", None, 4, 2048, 64),
-               ("recurrentgemma-9b", 3, 1, 4096, 32),
-               ("minicpm-2b", None, 4, 2048, 16),
-               ("command-r-35b", 4, 2, 2048, 16))
-# flash_attention_fwd at the dense decoders' prefill shapes, causal:
-# (B, Hq, Hkv, S, D, window)
+# (arch, depth (None: the full config), batch, prompt tokens, decode steps,
+# frontend embeddings a row (0: none; else the config's n_frontend_tokens))
+SERVE_CELLS = (("gemma-7b", None, 4, 2048, 64, 0),
+               ("recurrentgemma-9b", 3, 1, 4096, 32, 0),
+               ("minicpm-2b", None, 4, 2048, 16, 0),
+               ("command-r-35b", 4, 2, 2048, 16, 0),
+               # 30 s of audio (Whisper's fixed window) a row; the cache's
+               # 192 positions stay under its 448-token text context
+               ("whisper-large-v3", None, 8, 128, 64, 1500),
+               ("llama-3.2-vision-11b", None, 4, 2048, 32, 4100))
+# flash_attention_fwd at the serving cells' prefill shapes: (B, Hq, Hkv,
+# Sq, D, window) causal with Skv = Sq, or (B, Hq, Hkv, Sq, D, window, Skv,
+# causal)
 SERVE_FLASH = (("gemma_7b", (4, 16, 16, 2048, 256, None)),
                ("minicpm_2b", (4, 36, 36, 2048, 64, None)),
-               ("command_r_35b", (2, 64, 8, 2048, 128, None)))
+               ("command_r_35b", (2, 64, 8, 2048, 128, None)),
+               ("whisper_encoder", (8, 20, 20, 1500, 64, None, 1500, False)),
+               ("whisper_cross", (8, 20, 20, 128, 64, None, 1500, False)),
+               ("whisper_decoder", (8, 20, 20, 128, 64, None)),
+               ("llama_vision_cross",
+                (4, 32, 8, 2048, 128, None, 4100, False)))
+# the gate of every gated cross-attention block: `init_params` (as the
+# reference's) makes it 0, and tanh(0) = 0 would take the block out
+SERVE_GATE = 1.0
 SERVE_BOUND = 2e-2  # max |a - b| / max |b|: logits and cache tensors, bf16
 
 
@@ -3452,26 +3482,39 @@ def rel_err(got, want) -> float:
 
 
 class BlockRecord:
-    """While active, keeps every block's input and output x (`ins`,
-    `outs`), in the order the model applies the blocks (wraps
-    `models.model._apply_block`)."""
+    """While active, keeps every block call's input and output x (`ins`,
+    `outs`), the cache it returned (`caches`) and its other arguments
+    (`calls`: block, params, positions, prefill_len, memory), in the
+    order the model applies the blocks: an encoder's first, then the
+    decoder's, which hold the memory (the encoder's output) of that run
+    (wraps `models.model._apply_block`)."""
 
     def __enter__(self):
         from repro_torch.models import model as M
 
-        self._m, self._real, self.ins, self.outs = M, M._apply_block, [], []
+        self._m, self._real = M, M._apply_block
+        self.ins, self.outs, self.caches, self.calls = [], [], [], []
 
-        def keep(*args, **kw):
-            x, c = self._real(*args, **kw)
-            self.ins.append(args[2])
-            self.outs.append(x)
-            return x, c
+        def keep(bd, p, x, cfg, positions, cache=None, cache_pos=None,
+                 prefill_len=None, memory=None):
+            y, c = self._real(bd, p, x, cfg, positions, cache, cache_pos,
+                              prefill_len, memory=memory)
+            self.ins.append(x)
+            self.outs.append(y)
+            self.caches.append(c)
+            self.calls.append((bd, p, positions, prefill_len, memory))
+            return y, c
 
         M._apply_block = keep
         return self
 
     def __exit__(self, *exc):
         self._m._apply_block = self._real
+
+
+def encoder_blocks(cfg) -> int:
+    """How many encoder blocks a forward applies before the decoder's."""
+    return sum(len(pat) * n for pat, n in cfg.enc_segments())
 
 
 def model_blocks(cfg, segments):
@@ -3505,10 +3548,11 @@ def sdpa_attention(q, k, v, causal=True, window=None, scale=None,
     return o, torch.zeros(q.shape[:3], device=q.device)
 
 
-def recorded_prefill(params, cfg, tokens, cache_len: int, attention=None):
-    """A prefill with every block's input and output recorded; with
-    `attention`, that stands in for `flash_attention_fwd`. Returns (the
-    record, last-position logits, the cache)."""
+def recorded_prefill(params, cfg, tokens, cache_len: int, fe=None,
+                     attention=None):
+    """A prefill (with frontend embeddings `fe`) with every block's call
+    recorded; with `attention`, that stands in for `flash_attention_fwd`.
+    Returns (the record, last-position logits, the cache)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import model as M
 
@@ -3516,7 +3560,7 @@ def recorded_prefill(params, cfg, tokens, cache_len: int, attention=None):
     ops.flash_attention_fwd = attention or real
     try:
         with BlockRecord() as rec:
-            logits, cache = M.forward(params, cfg, tokens, mode="prefill",
+            logits, cache = M.forward(params, cfg, tokens, fe, mode="prefill",
                                       cache_len=cache_len)
     finally:
         ops.flash_attention_fwd = real
@@ -3524,74 +3568,76 @@ def recorded_prefill(params, cfg, tokens, cache_len: int, attention=None):
     return rec, last, cache
 
 
-def lockstep_prefill(params, cfg, rec, cache, cache_len: int):
-    """Each block with `cfg`'s kernels, fed the input that block had in
-    the recorded (plain) prefill: the larger relative error of its output
-    and of each of its cache tensors against that run's, block by
-    block."""
-    import torch
+def lockstep_prefill(cfg, rec):
+    """Each block with `cfg`'s kernels, fed the input (and a decoder
+    block the memory) that block had in the recorded (plain) prefill, an
+    encoder's blocks too: the larger relative error of its output and of
+    each of its cache tensors against that run's, block by block."""
     from repro_torch.models import model as M
 
-    pos = torch.arange(rec.ins[0].shape[1], device=rec.ins[0].device)
     errs = []
-    for (bd, pp), (_, want_c), x, want in zip(
-            model_blocks(cfg, params["segments"]),
-            model_blocks(cfg, cache["segments"]), rec.ins, rec.outs):
-        y, c = M._apply_block(bd, pp, x, cfg, pos, prefill_len=cache_len)
-        errs.append(max([rel_err(y, want)] + [
-            rel_err(a, b) for a, b in zip(_leaves(c), _leaves(want_c))]))
+    for x, want, want_c, (bd, pp, pos, plen, mem) in zip(
+            rec.ins, rec.outs, rec.caches, rec.calls):
+        y, c = M._apply_block(bd, pp, x, cfg, pos, prefill_len=plen,
+                              memory=mem)
+        caches = [] if want_c is None else zip(_leaves(c), _leaves(want_c))
+        errs.append(max([rel_err(y, want)] + [rel_err(a, b)
+                                              for a, b in caches]))
     return errs
 
 
-def lockstep_decode(params, cfg, rec, at: int, cache_len: int):
-    """Each block's decode at position `at`, against the recorded train
-    forward: the block builds its cache by a prefill over the input it
-    had there at positions < at, then decodes its input at `at`; the
-    relative error against that forward's output at `at`, block by
-    block."""
+def lockstep_decode(cfg, rec, at: int, cache_len: int):
+    """Each decoder block's decode at position `at`, against the recorded
+    train forward: the block builds its cache by a prefill over the input
+    (and the memory) it had there at positions < at, then decodes its
+    input at `at`; the relative error against that forward's output at
+    `at`, block by block."""
     import torch
     from repro_torch.models import model as M
 
     dev = rec.ins[0].device
-    pos = torch.arange(at + 1, device=dev)
     here = torch.tensor(at, dtype=torch.int32, device=dev)
     errs = []
-    for (bd, pp), x, want in zip(model_blocks(cfg, params["segments"]),
-                                 rec.ins, rec.outs):
+    n_enc = encoder_blocks(cfg)
+    for x, want, (bd, pp, pos, _, mem) in zip(
+            rec.ins[n_enc:], rec.outs[n_enc:], rec.calls[n_enc:]):
         _, c = M._apply_block(bd, pp, x[:, :at], cfg, pos[:at],
-                              prefill_len=cache_len)
+                              prefill_len=cache_len, memory=mem)
         y, _ = M._apply_block(bd, pp, x[:, at:at + 1], cfg, here[None], c,
                               here)
         errs.append(rel_err(y[:, 0], want[:, at]))
     return errs
 
 
-def decode_parting(params, cfg, seq, at: int, cache_len: int):
+def decode_parting(params, cfg, seq, at: int, cache_len: int, fe=None):
     """Where a decode step at position `at` (after a prefill of the
     tokens before it) and the train forward over seq[:, :at + 1] part:
-    the first block whose output at `at` differs beyond SERVE_BOUND."""
+    the first decoder block whose output at `at` differs beyond
+    SERVE_BOUND."""
     from repro_torch.models import model as M
 
-    _, cache = M.forward(params, cfg, seq[:, :at], mode="prefill",
+    _, cache = M.forward(params, cfg, seq[:, :at], fe, mode="prefill",
                          cache_len=cache_len)
     with BlockRecord() as dec:
         M.decode_step(params, cfg, seq[:, at:at + 1], cache)
     with BlockRecord() as full:
-        M.forward(params, cfg, seq[:, :at + 1])
-    return first_parting(dec.outs, full.outs, lambda x: x[:, 0],
-                         lambda x: x[:, at], SERVE_BOUND)
+        M.forward(params, cfg, seq[:, :at + 1], fe)
+    return first_parting(dec.outs, full.outs[encoder_blocks(cfg):],
+                         lambda x: x[:, 0], lambda x: x[:, at], SERVE_BOUND)
 
 
 def attention_blocks(cfg, cache):
-    """(mixer, block cache) of every attention block, in order."""
+    """(mixer, block cache) of every self-attention block with a cache,
+    in order."""
     return [(bd.mixer, c) for bd, c in model_blocks(cfg, cache["segments"])
-            if bd.mixer in ("attn", "swa")]
+            if bd.mixer in ("attn", "swa", "dec")]
 
 
 def end_to_end(last, cache_leaves, rec, want_last, want_leaves, want_rec):
     """A prefill against another (the plain one): last-position logits,
     the largest cache tensor error and its index, the rows whose first
-    greedy token agrees, the first block parting beyond SERVE_BOUND."""
+    greedy token agrees, the first block (an encoder's counted first)
+    parting beyond SERVE_BOUND at the last position."""
     errs = [rel_err(a, b) for a, b in zip(cache_leaves, want_leaves)]
     worst = max(range(len(errs)), key=errs.__getitem__)
     last_pos = lambda x: x[:, -1]
@@ -3604,17 +3650,21 @@ def end_to_end(last, cache_leaves, rec, want_last, want_leaves, want_rec):
 
 
 def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
-               smoke: bool = False):
+               frontend: int = 0, smoke: bool = False):
     """One architecture through the serving entry points: `init_params`
-    (seed 19), `make_prefill_step` over a seeded numpy prompt (batch x
-    seq) into a cache of seq + steps positions, then `steps` greedy
+    (seed 19; every cross-attention gate set to SERVE_GATE),
+    `make_prefill_step` over a seeded numpy prompt (batch x seq) and,
+    with `frontend`, seeded numpy frontend-stub embeddings (batch x
+    frontend x frontend_dim; with `smoke`, the smoke config's count) into
+    a cache of seq + steps positions, then `steps` greedy
     `make_decode_step` calls; timed, the last decode step profiled.
 
     Checks, each at SERVE_BOUND (max |a - b| / max |b|):
     * lockstep against the plain versions: every block with the kernels,
-      fed the input it had in the prefill with every kernel's plain
-      version, against that block's output and each of its cache
-      tensors there (asserted);
+      an encoder's too, fed the input (and a decoder block the memory)
+      it had in the prefill with every kernel's plain version, against
+      that block's output and each of its cache tensors there
+      (asserted);
     * lockstep decode: at the first and the last decode step, each
       block's decode (from the cache its own prefill of the earlier
       positions built) against the train forward over the prompt and
@@ -3650,21 +3700,37 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     cache_len = seq + steps
     peak_reset(dev)
     params = M.init_params(cfg, 19, dev)
+    gated = [blk for bd, blk in model_blocks(cfg, params["segments"])
+             if bd.mixer == "xattn"]
+    for blk in gated:
+        blk["mixer"]["gate_attn"].fill_(SERVE_GATE)
     n_params = sum(p.numel() for p in _leaves(params))
-    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+    # what a decode step reads: not the encoder, not the frontend's
+    # projection (the cross-attention keys and values are cached)
+    n_decoder = n_params - sum(p.numel() for k in (
+        "enc_segments", "enc_final_norm", "frontend_proj") if k in params
+        for p in _leaves(params[k]))
+    rng = np.random.default_rng(19)
+    tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    fe = None
+    if frontend:
+        m = cfg.n_frontend_tokens if smoke else frontend
+        assert m == cfg.n_frontend_tokens, (arch, m, cfg.n_frontend_tokens)
+        fe = torch.from_numpy(rng.standard_normal(
+            (batch, m, cfg.frontend_dim)).astype(np.float32)).to(dev)
     prefill = make_prefill_step(cfg, cache_len)
     decode = make_decode_step(cfg)
     # a short prefill and decode step first (library handles, first
     # launches), neither timed nor counted
     warm = min(seq, 128)
-    decode(params, tokens[:, :1], prefill(params, tokens[:, :warm])[1])
+    decode(params, tokens[:, :1], prefill(params, tokens[:, :warm], fe)[1])
     sync(dev)
 
     # the main path: prefill and `steps` greedy decode steps
     reset_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, fe)
     sync(dev)
     prefill_s = time.perf_counter() - t0
     last = logits[:, -1].clone()
@@ -3696,23 +3762,37 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     step_launches = sum(e.count for e in ev)
     top = [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in
            sorted(ev, key=lambda e: -e.self_device_time_total)[:8]]
+    pre_prof = None
+    if fe is not None:  # a frontend cell's prefill, profiled
+        run = lambda: prefill(params, tokens, fe)
+        p_wall, p_ev = device_events(dev, run, warmup=run)
+        dev_ms = lambda evs: sum(e.self_device_time_total for e in evs) / 1e3
+        pre_prof = {"wall_ms": p_wall * 1e3, "device_ms": dev_ms(p_ev),
+                    "launches": sum(e.count for e in p_ev),
+                    "flash_ms": dev_ms(e for e in p_ev
+                                       if "flash_fwd" in e.key),
+                    "top": [[e.key[:90], e.self_device_time_total / 1e3,
+                             e.count] for e in sorted(
+                                 p_ev, key=lambda e: -e.self_device_time_total
+                             )[:8]]}
 
     # the prefill against the plain versions: lockstep, then end to end
     with torch.no_grad():
         p_rec, p_last, p_cache = recorded_prefill(params, plain_cfg, tokens,
-                                                  cache_len)
-        lock_p = lockstep_prefill(params, cfg, p_rec, p_cache, cache_len)
+                                                  cache_len, fe)
+        lock_p = lockstep_prefill(cfg, p_rec)
         p_leaves = _leaves(p_cache["segments"])
         del p_cache
         k_rec, k_last, k_cache = recorded_prefill(params, cfg, tokens,
-                                                  cache_len)
+                                                  cache_len, fe)
         rerun_equal = bool(torch.equal(k_last, last))
         del k_cache
         e2e = end_to_end(last, prefill_leaves, k_rec, p_last, p_leaves,
                          p_rec)
         del k_rec
         s_rec, s_last, s_cache = recorded_prefill(params, cfg, tokens,
-                                                  cache_len, sdpa_attention)
+                                                  cache_len, fe,
+                                                  sdpa_attention)
         floor = end_to_end(s_last, _leaves(s_cache["segments"]), s_rec,
                            p_last, p_leaves, p_rec)
         del s_rec, s_cache, p_rec, p_leaves, prefill_leaves
@@ -3729,18 +3809,18 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     seq_all = torch.cat([tokens] + fed, 1)
     with torch.no_grad():
         with BlockRecord() as t_rec:
-            full = M.forward(params, cfg, seq_all)
+            full = M.forward(params, cfg, seq_all, fe)
         tf_errs = [rel_err(o, full[:, seq + i]) for i, o in enumerate(outs)]
         agree = float(torch.stack([
             o.argmax(-1) == full[:, seq + i].argmax(-1)
             for i, o in enumerate(outs)]).float().mean())
         del full
-        lock_d = {i: lockstep_decode(params, cfg, t_rec, seq + i, cache_len)
+        lock_d = {i: lockstep_decode(cfg, t_rec, seq + i, cache_len)
                   for i in (0, steps - 1)}
         del t_rec
         worst = max(range(steps), key=tf_errs.__getitem__)
         tf_part = (decode_parting(params, cfg, seq_all, seq + worst,
-                                  cache_len)
+                                  cache_len, fe)
                    if tf_errs[worst] > SERVE_BOUND else None)
     lock_d_max = max(max(v) for v in lock_d.values())
     assert lock_d_max <= SERVE_BOUND, (
@@ -3765,22 +3845,41 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         window = cfg.window if mixer == "swa" else None
         attend = lambda: decode_attention(q, kc, vc, length, window, scale)
     att_ms = device_ms(attend, dev, 10)
+    # a cross-attention block's decode: the cached keys normed again, then
+    # `decode_attention` over the memory (plain, as the reference's)
+    cross = [(bd, p, c) for (bd, p), (_, c) in zip(
+        model_blocks(cfg, params["segments"]),
+        model_blocks(cfg, cache["segments"])) if bd.mixer in ("xattn", "dec")]
+    xatt_ms = None
+    if cross:
+        from repro_torch.models.layers import rms_norm
+
+        xbd, xp, xblk = cross[0]
+        xw = (xp["mixer"] if xbd.mixer == "xattn" else xp["cross"])
+        xw = xw["knorm"]["w"]
+        xatt_ms = device_ms(lambda: decode_attention(
+            q, rms_norm(xblk["xk"], xw), xblk["xv"]), dev, 10)
     x1 = torch.randn((batch, 1, cfg.d_model), generator=gen,
                      device=dev).to(cfg.torch_dtype)
     head_ms = device_ms(lambda: M._logits(params, cfg, x1), dev, 5)
 
-    param_bytes = n_params * params["embed"].element_size()
+    param_bytes = n_decoder * params["embed"].element_size()
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(cache["segments"]))
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     share = lambda ms: ms / step_dev_ms if step_dev_ms else None
-    fig = {"layers": cfg.num_layers, "params": n_params, "batch": batch,
-           "prompt": seq, "decode_steps": steps, "cache_len": cache_len,
+    fig = {"layers": cfg.num_layers, "enc_layers": cfg.enc_layers,
+           "params": n_params, "decoder_params": n_decoder, "batch": batch,
+           "prompt": seq, "frontend_tokens": 0 if fe is None else
+           fe.shape[1], "gated_blocks": len(gated),
+           "gate_attn": SERVE_GATE if gated else None,
+           "decode_steps": steps, "cache_len": cache_len,
            "prefill_ms": prefill_s * 1e3,
            "prefill_tokens_per_s": batch * seq / prefill_s,
            "decode_step_ms": [x * 1e3 for x in step_s],
            "decode_median_ms": steady * 1e3,
            "decode_tokens_per_s": batch / steady,
+           "prefill_profile": pre_prof,
            "decode_step_profile": {"wall_ms": wall * 1e3,
                                    "device_ms": step_dev_ms,
                                    "launches": step_launches, "top": top},
@@ -3788,6 +3887,10 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
            / HBM_BYTES_PER_S * 1e3,
            "decode_attention_ms": att_ms, "attention_layers": len(attn),
            "decode_attention_share": share(att_ms * len(attn)),
+           "decode_cross_attention_ms": xatt_ms,
+           "cross_attention_layers": len(cross),
+           "decode_cross_attention_share":
+           None if xatt_ms is None else share(xatt_ms * len(cross)),
            "head_ms": head_ms, "head_share": share(head_ms),
            "kv_cache_gb": cache_bytes / 1e9, "peak_gb_main": peak_main,
            "lockstep_prefill_max": max(lock_p),
@@ -3801,6 +3904,14 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
                               "argmax_agreement": agree},
            "peak_gb": peak_gb(dev)}
     met = lambda e: "met" if e <= SERVE_BOUND else "NOT met"
+    if fe is not None:
+        log(f"  {arch}: {cfg.enc_layers} encoder layers over {fe.shape[1]} "
+            f"frontend embeddings a row (seeded normal, batch {batch}); "
+            + (f"{len(gated)} gated cross-attention blocks, gate_attn set "
+               f"to {SERVE_GATE} (init_params makes it 0)" if gated else
+               "no gated cross-attention block ('dec' is ungated)")
+            + f"; the decode step's bound reads {n_decoder / 1e9:.3f} B "
+            f"decoder parameters")
     log(f"  {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
         f"batch {batch} x {seq}, cache_len {cache_len} (KV and state "
         f"{cache_bytes / 1e9:.2f} GB): prefill {prefill_s * 1e3:.1f} ms = "
@@ -3830,9 +3941,20 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         f"attention {att_ms:.4f} ms a layer x {len(attn)} "
         f"({mixer}, {ln} slots) = share "
         f"{fig['decode_attention_share']}; float32 head {head_ms:.3f} ms "
-        f"(share {fig['head_share']})")
+        f"(share {fig['head_share']})"
+        + ("" if xatt_ms is None else
+           f"; cross-attention decode (keys normed again, plain) "
+           f"{xatt_ms:.4f} ms a layer x {len(cross)} = share "
+           f"{fig['decode_cross_attention_share']}"))
     for name, ms, n in top[:5]:
         log(f"      {ms:9.3f} ms {n:5d}x  {name}")
+    if pre_prof is not None:
+        log(f"    one prefill profiled: wall {pre_prof['wall_ms']:.2f} ms, "
+            f"device {pre_prof['device_ms']:.2f} ms in "
+            f"{pre_prof['launches']} launches, flash_attention_fwd "
+            f"{pre_prof['flash_ms']:.2f} ms of it")
+        for name, ms, n in pre_prof["top"][:5]:
+            log(f"      {ms:9.3f} ms {n:5d}x  {name}")
     return fig, counts
 
 
@@ -3842,9 +3964,9 @@ def phase_serve_lm(dev, cells=SERVE_CELLS, smoke: bool = False):
     import torch
 
     figs, total = {}, {}
-    for arch, depth, batch, seq, steps in cells:
+    for arch, depth, batch, seq, steps, frontend in cells:
         figs[arch], counts = serve_cell(dev, arch, depth, batch, seq, steps,
-                                        smoke)
+                                        frontend, smoke)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         if dev.type == "cuda":
@@ -4072,8 +4194,11 @@ def main() -> int:
         "points: Gemma-7B (full config) 4 x 2048 and 64 greedy steps; "
         "RecurrentGemma-9B at depth 3, 1 x 4096 and 32 steps (past its "
         "window); MiniCPM-2B (full config) 4 x 2048 and 16 steps; "
-        "Command-R-35B at depth 4, 2 x 2048 and 16 steps; then "
-        "flash_attention_fwd at the three dense decoders' prefill shapes")
+        "Command-R-35B at depth 4, 2 x 2048 and 16 steps; Whisper-large-v3 "
+        "(full config) 8 x 1500 frames, a 128-token prompt and 64 steps; "
+        "Llama-3.2-Vision-11B (full config) 4 x 2048 with 4100 vision "
+        "tokens and 32 steps; then flash_attention_fwd at the cells' "
+        "prefill shapes, causal and non-causal")
     serve_lm, paths["serve_lm"] = phase_serve_lm(dev)
     flash_rows(dev, rows, 20, torch.Generator(device=dev).manual_seed(2029),
                SERVE_FLASH, clocks=False)

@@ -24,9 +24,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
-    """One layer's recipe: a mixer ('attn', 'swa', 'rglru' are ported;
-    'bidir', 'xattn', 'dec', 'mla', 'mlstm', 'slstm' are not yet) and an
-    FFN ('dense' is ported; 'moe', 'dense_moe', 'none' are not yet)."""
+    """One layer's recipe: a mixer ('attn', 'swa', 'bidir', 'xattn',
+    'dec', 'rglru' are ported; 'mla', 'mlstm', 'slstm' are not yet) and
+    an FFN ('dense' is ported; 'moe', 'dense_moe', 'none' are not yet)."""
 
     mixer: str
     ffn: str = "dense"
@@ -47,7 +47,7 @@ class ModelConfig:
     norm: str = "rmsnorm"  # 'rmsnorm' | 'rmsnorm_unit' (1 + w) | 'layernorm'
     activation: str = "silu"
     gated_mlp: bool = True
-    rope_theta: float = 10_000.0
+    rope_theta: float = 10_000.0  # 0: no rope, sinusoidal positions
     window: Optional[int] = None  # for 'swa'
     attn_bias: bool = False
     qk_norm: bool = False
@@ -100,5 +100,18 @@ class ModelConfig:
             segs.append((self.pattern, full))
         if rem:
             segs.append((self.pattern[:rem], 1))
+        return tuple(segs)
+
+    def enc_segments(self):
+        """The encoder's ((pattern, n_periods), ...); () without one."""
+        if not self.enc_layers:
+            return ()
+        p = len(self.enc_pattern)
+        full, rem = divmod(self.enc_layers, p)
+        segs = []
+        if full:
+            segs.append((self.enc_pattern, full))
+        if rem:
+            segs.append((self.enc_pattern[:rem], 1))
         return tuple(segs)
 

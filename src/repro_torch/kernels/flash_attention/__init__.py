@@ -1,8 +1,10 @@
-"""Causal / sliding-window GQA attention: `flash_attention_fwd` (the CUDA
-kernel on the card, the plain pair schedule on the CPU), the
-differentiable `flash_attention`, the plain versions `pair_fwd`,
-`pair_bwd` and `mha_reference`, and the single-token decode over a KV
-cache, `decode_attention` (plain PyTorch, as in the reference)."""
+"""GQA attention, causal, sliding-window or non-causal (encoder
+self-attention, cross-attention with Sq != Skv and ragged key lengths):
+`flash_attention_fwd` (the CUDA kernel on the card, the plain pair
+schedule on the CPU), the differentiable `flash_attention`, the plain
+versions `pair_fwd`, `pair_bwd` and `mha_reference`, and the
+single-token decode over a KV cache, `decode_attention` (plain PyTorch,
+as in the reference)."""
 from repro_torch.kernels.flash_attention.ops import (cache_attention,
                                                      decode_attention,
                                                      flash_attention,

@@ -3,7 +3,14 @@ pair schedule for CPU tensors), the differentiable `flash_attention`,
 and `decode_attention`, one new token against a KV cache.
 
 Replaces the Pallas kernel `flash_attention_fwd`
-(src/repro/kernels/flash_attention/flash_attention.py:101). CUDA source:
+(src/repro/kernels/flash_attention/flash_attention.py:101). Besides the
+decoders' causal and sliding-window self-attention it serves, non-causal,
+the encoder's self-attention and cross-attention, where Sq != Skv and the
+key length is ragged (1,500 audio frames, 4,100 vision tokens): the
+kernel masks the ragged key tile, so nothing is padded. The reference
+sends those shapes to its XLA path (its Pallas kernel takes only
+multiples of 128, src/repro/kernels/flash_attention/ops.py:37). CUDA
+source:
 ``kernels/csrc/flash_attention.cu``, two routes by dtype, both visiting
 only the visible key tiles and reading kv head h / (Hq / Hkv) without
 repeating heads, both writing the per-row log-sum-exp the backward reads:

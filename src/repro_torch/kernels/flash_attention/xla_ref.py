@@ -10,10 +10,14 @@ the port's `flash_attention` on every device (the reference, too,
 computes its backward outside any Pallas kernel). Its products are
 `torch.matmul` in float32.
 
-One generalisation: the visible pairs here account for `q_offset`. The
+Two generalisations. The visible pairs here account for `q_offset`. The
 reference's `_visible_pairs` ignores it, which is the same at
 q_offset = 0 (the only value its models pass) and would drop visible
-blocks above it; the kernels' skip rule does account for it.
+blocks above it; the kernels' skip rule does account for it. And ragged
+lengths (1,500 audio frames, 4,100 vision tokens) are padded to a block
+of a useful size, the padded keys masked (the reference's `kv_len`) and
+the padded rows dropped, where the reference's block rule would fall to
+blocks of 4 keys and a pair loop of 1e5 steps (`blocking`).
 """
 from __future__ import annotations
 
@@ -25,13 +29,16 @@ F32 = torch.float32
 NEG = -1e30
 
 
-def _block_mask(qpos, kpos, causal: bool, window: Optional[int]):
+def _block_mask(qpos, kpos, causal: bool, window: Optional[int],
+                kv_len: Optional[int] = None):
     m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
                    device=qpos.device)
     if causal:
         m &= kpos[None, :] <= qpos[:, None]
     if window is not None:
         m &= kpos[None, :] > qpos[:, None] - window
+    if kv_len is not None:
+        m &= kpos[None, :] < kv_len
     return m
 
 
@@ -40,6 +47,26 @@ def pick_block(sq: int, skv: int, want: int = 512) -> int:
     while sq % c or skv % c:
         c //= 2
     return max(c, 1)
+
+
+def blocking(sq: int, skv: int, want: int = 512) -> Tuple[int, int, int]:
+    """(block c, Sq and Skv padded to multiples of c). Lengths with a
+    common block of at least min(64, Sq, Skv) keep the reference's block
+    and are not padded; ragged ones take the largest power of two up to
+    `want` that the shorter length reaches, and are padded."""
+    c = pick_block(sq, skv, want)
+    if c >= min(64, sq, skv):
+        return c, sq, skv
+    c = min(want, 1 << (min(sq, skv).bit_length() - 1))
+    return c, -(-sq // c) * c, -(-skv // c) * c
+
+
+def _pad(t: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
+    """`t` padded along its third axis (the sequence) to length n."""
+    if t.shape[2] == n:
+        return t
+    tail = (0, 0) * (t.dim() - 3) + (0, n - t.shape[2])
+    return torch.nn.functional.pad(t, tail, value=value)
 
 
 def visible_pairs(nq: int, nk: int, c: int, causal: bool,
@@ -86,12 +113,13 @@ def pair_fwd(q, k, v, causal: bool, window: Optional[int],
     g = hq // hkv
     if scale is None:
         scale = dh ** -0.5
-    c = pick_block(sq, skv)
-    nq, nk = sq // c, skv // c
+    c, sqp, skvp = blocking(sq, skv)
+    kv_len = skv if skvp != skv else None
+    nq, nk = sqp // c, skvp // c
     dev = q.device
-    qb = _blocks(b, hkv, g, nq, c, q) * scale
-    kb = _kv_blocks(b, hkv, nk, c, k)
-    vb = _kv_blocks(b, hkv, nk, c, v)
+    qb = _blocks(b, hkv, g, nq, c, _pad(q, sqp)) * scale
+    kb = _kv_blocks(b, hkv, nk, c, _pad(k, skvp))
+    vb = _kv_blocks(b, hkv, nk, c, _pad(v, skvp))
     rel = torch.arange(c, device=dev).repeat(g)  # row -> position in block
     acc = [torch.zeros((b, hkv, g * c, dhv), dtype=F32, device=dev)
            for _ in range(nq)]
@@ -103,7 +131,7 @@ def pair_fwd(q, k, v, causal: bool, window: Optional[int],
         s = torch.matmul(qb[qi], kb[ki].transpose(-1, -2))
         mask = _block_mask(q_offset + qi * c + rel,
                            ki * c + torch.arange(c, device=dev), causal,
-                           window)
+                           window, kv_len)
         s = torch.where(mask, s, NEG)
         m_new = torch.maximum(m[qi], s.amax(-1))
         alpha = torch.exp(m[qi] - m_new)
@@ -114,8 +142,8 @@ def pair_fwd(q, k, v, causal: bool, window: Optional[int],
     l_all = torch.clamp(torch.stack(l), min=1e-30)
     o = torch.stack(acc) / l_all[..., None]
     lse = torch.stack(m) + torch.log(l_all)
-    return (_unblock(b, hkv, g, nq, c, o).to(q.dtype),
-            _unblock(b, hkv, g, nq, c, lse))
+    return (_unblock(b, hkv, g, nq, c, o)[:, :, :sq].to(q.dtype),
+            _unblock(b, hkv, g, nq, c, lse)[:, :, :sq])
 
 
 def pair_bwd(q, k, v, o, lse, gout, causal: bool, window: Optional[int],
@@ -128,15 +156,17 @@ def pair_bwd(q, k, v, o, lse, gout, causal: bool, window: Optional[int],
     g = hq // hkv
     if scale is None:
         scale = dh ** -0.5
-    c = pick_block(sq, skv)
-    nq, nk = sq // c, skv // c
+    c, sqp, skvp = blocking(sq, skv)
+    kv_len = skv if skvp != skv else None
+    nq, nk = sqp // c, skvp // c
     dev = q.device
-    qb = _blocks(b, hkv, g, nq, c, q)
-    gb = _blocks(b, hkv, g, nq, c, gout)
-    drow = (gb * _blocks(b, hkv, g, nq, c, o)).sum(-1)  # (nq, b, h, g*c)
-    lseb = _blocks(b, hkv, g, nq, c, lse[..., None])[..., 0]
-    kb = _kv_blocks(b, hkv, nk, c, k)
-    vb = _kv_blocks(b, hkv, nk, c, v)
+    qb = _blocks(b, hkv, g, nq, c, _pad(q, sqp))
+    gb = _blocks(b, hkv, g, nq, c, _pad(gout, sqp))
+    drow = (gb * _blocks(b, hkv, g, nq, c, _pad(o, sqp))).sum(-1)
+    # padded rows: an lse of 1e30 makes their probabilities 0
+    lseb = _blocks(b, hkv, g, nq, c, _pad(lse, sqp, -NEG)[..., None])[..., 0]
+    kb = _kv_blocks(b, hkv, nk, c, _pad(k, skvp))
+    vb = _kv_blocks(b, hkv, nk, c, _pad(v, skvp))
     rel = torch.arange(c, device=dev).repeat(g)
     dq = torch.zeros((nq, b, hkv, g * c, dh), dtype=F32, device=dev)
     dk = torch.zeros((nk, b, hkv, c, dh), dtype=F32, device=dev)
@@ -146,14 +176,14 @@ def pair_bwd(q, k, v, o, lse, gout, causal: bool, window: Optional[int],
         s = torch.matmul(qq, kk.transpose(-1, -2)) * scale
         mask = _block_mask(q_offset + qi * c + rel,
                            ki * c + torch.arange(c, device=dev), causal,
-                           window)
+                           window, kv_len)
         p = torch.where(mask, torch.exp(s - lseb[qi][..., None]), 0.0)
         dv[ki] += torch.matmul(p.transpose(-1, -2), gg)
         dp = torch.matmul(gg, vv.transpose(-1, -2))
         ds = p * (dp - drow[qi][..., None]) * scale
         dq[qi] += torch.matmul(ds, kk)
         dk[ki] += torch.matmul(ds.transpose(-1, -2), qq)
-    dq = _unblock(b, hkv, g, nq, c, dq)
-    dk = dk.permute(1, 2, 0, 3, 4).reshape(b, hkv, skv, dh)
-    dv = dv.permute(1, 2, 0, 3, 4).reshape(b, hkv, skv, dhv)
+    dq = _unblock(b, hkv, g, nq, c, dq)[:, :, :sq]
+    dk = dk.permute(1, 2, 0, 3, 4).reshape(b, hkv, skvp, dh)[:, :, :skv]
+    dv = dv.permute(1, 2, 0, 3, 4).reshape(b, hkv, skvp, dhv)[:, :, :skv]
     return dq, dk, dv

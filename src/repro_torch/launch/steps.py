@@ -15,15 +15,16 @@ from repro_torch.tree import leaves, tree_map, unflatten
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                     schedule: str = "cosine", total_steps: int = 10_000):
-    """step(params, opt_state, tokens, targets) -> (params, opt_state,
-    metrics): the loss and its gradient, then one AdamW update in place.
-    The schedule is read at the step count before the increment."""
+    """step(params, opt_state, tokens, targets, frontend_embeds=None) ->
+    (params, opt_state, metrics): the loss and its gradient, then one
+    AdamW update in place. The schedule is read at the step count before
+    the increment."""
     sched = schedules.get(schedule)
 
-    def train_step(params, opt_state, tokens, targets):
+    def train_step(params, opt_state, tokens, targets, frontend_embeds=None):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
-            loss = lm_loss(live, cfg, tokens, targets)
+            loss = lm_loss(live, cfg, tokens, targets, frontend_embeds)
             grads = torch.autograd.grad(loss, leaves(live))
         del live
         grads = unflatten(params, grads)
@@ -37,19 +38,22 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
 
 
 def _on(params, tokens) -> torch.Tensor:
-    """`tokens` (a tensor or an int array) on the device of `params`."""
+    """`tokens` (a tensor or an array) on the device of `params`."""
     return torch.as_tensor(tokens, device=params["embed"].device)
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
-    """prefill(params, tokens) -> logits (no `cache_len`) or (logits, a
-    decode cache of `cache_len` positions). Runs without autograd on the
-    params' device (CUDA as `init_params` makes them, unless the caller
-    made them elsewhere); tokens are moved there."""
+    """prefill(params, tokens, frontend_embeds=None) -> logits (no
+    `cache_len`) or (logits, a decode cache of `cache_len` positions).
+    Runs without autograd on the params' device (CUDA as `init_params`
+    makes them, unless the caller made them elsewhere); tokens and
+    frontend embeddings are moved there."""
 
     @torch.no_grad()
     def prefill(params, tokens, frontend_embeds=None):
         tokens = _on(params, tokens)
+        if frontend_embeds is not None:
+            frontend_embeds = _on(params, frontend_embeds)
         if cache_len is None:
             return forward(params, cfg, tokens, frontend_embeds, mode="train")
         return forward(params, cfg, tokens, frontend_embeds, mode="prefill",

@@ -32,22 +32,28 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _segments_from_jax(segs, cfg: ModelConfig, conv):
+def _segments_from_jax(segs, layout, conv):
     """Each segment's stacked leaves (a leading period axis) as a list
-    over its periods of a tuple of block trees."""
+    over its periods of a tuple of block trees; `layout` is the config's
+    ``segments()`` or ``enc_segments()``."""
     host = lambda a: a if isinstance(a, torch.Tensor) else np.asarray(a)
     return [[tuple(tree_map(lambda a, i=i: conv(host(a)[i]), seg[j])
                    for j in range(len(pat)))
              for i in range(n)]
-            for seg, (pat, n) in zip(segs, cfg.segments())]
+            for seg, (pat, n) in zip(segs, layout)]
 
 
-def _segments_to_numpy(segs, cfg: ModelConfig):
+def _segments_to_numpy(segs, layout):
     """The inverse: periods stacked on a leading axis, as numpy."""
     return [tuple(tree_map(lambda *ts: np.stack([_to_numpy(t) for t in ts]),
                            *[period[j] for period in seg])
                   for j in range(len(pat)))
-            for seg, (pat, _) in zip(segs, cfg.segments())]
+            for seg, (pat, _) in zip(segs, layout)]
+
+
+# the optional top-level leaves: an untied head, the encoder's final norm,
+# the frontend's projection (the encoder's segments are laid out apart)
+_EXTRA = ("lm_head", "enc_final_norm", "frontend_proj")
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -55,31 +61,47 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """The port's parameters from the reference's tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, params)``, or CPU tensors;
     a block's leaves may be dicts or, as read from a checkpoint, lists).
-    Every leaf carries over, LayerNorm's bias ``b`` among them."""
+    Every leaf carries over, LayerNorm's bias ``b`` among them, and so do
+    an untied ``lm_head``, the encoder's ``enc_segments`` and
+    ``enc_final_norm`` and a ``frontend_proj``."""
     conv = lambda a: _to_torch(
         a if isinstance(a, torch.Tensor) else np.asarray(a), device)
-    return {"embed": conv(tree["embed"]),
-            "final_norm": tree_map(conv, tree["final_norm"]),
-            "segments": _segments_from_jax(tree["segments"], cfg, conv)}
+    out = {"embed": conv(tree["embed"]),
+           "final_norm": tree_map(conv, tree["final_norm"]),
+           "segments": _segments_from_jax(tree["segments"], cfg.segments(),
+                                          conv)}
+    if "enc_segments" in tree:
+        out["enc_segments"] = _segments_from_jax(
+            tree["enc_segments"], cfg.enc_segments(), conv)
+    out.update({k: tree_map(conv, tree[k]) for k in _EXTRA if k in tree})
+    return out
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
     """The reference's layout (periods stacked on a leading axis) as numpy
     arrays; bfloat16 leaves are widened to float32."""
-    return {"embed": _to_numpy(params["embed"]),
-            "final_norm": tree_map(_to_numpy, params["final_norm"]),
-            "segments": _segments_to_numpy(params["segments"], cfg)}
+    out = {"embed": _to_numpy(params["embed"]),
+           "final_norm": tree_map(_to_numpy, params["final_norm"]),
+           "segments": _segments_to_numpy(params["segments"],
+                                          cfg.segments())}
+    if "enc_segments" in params:
+        out["enc_segments"] = _segments_to_numpy(params["enc_segments"],
+                                                 cfg.enc_segments())
+    out.update({k: tree_map(_to_numpy, params[k]) for k in _EXTRA
+                if k in params})
+    return out
 
 
 def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                    device="cpu") -> Dict[str, Any]:
     """The port's decode cache from the reference's (``{"pos": int32
     scalar, "segments": each period stacked on a leading axis}``, leaves
-    as numpy arrays)."""
+    as numpy arrays; a cross-attention block's ``xk`` / ``xv`` too)."""
     conv = lambda a: _to_torch(np.asarray(a), device)
     return {"pos": conv(np.asarray(tree["pos"], np.int32)),
-            "segments": _segments_from_jax(tree["segments"], cfg, conv)}
+            "segments": _segments_from_jax(tree["segments"], cfg.segments(),
+                                           conv)}
 
 
 def cache_to_numpy(cache: Dict[str, Any], cfg: ModelConfig
@@ -87,7 +109,8 @@ def cache_to_numpy(cache: Dict[str, Any], cfg: ModelConfig
     """The port's decode cache in the reference's layout as numpy arrays
     ("pos" an int32 scalar); bfloat16 leaves are widened to float32."""
     return {"pos": np.int32(cache["pos"].item()),
-            "segments": _segments_to_numpy(cache["segments"], cfg)}
+            "segments": _segments_to_numpy(cache["segments"],
+                                           cfg.segments())}
 
 
 def _nest(pairs) -> Dict[str, Any]:

@@ -1,13 +1,18 @@
 """Model building blocks, functional PyTorch (params are plain dicts):
 the subset of `repro.models.layers` that the ported architectures run
-(SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B, Command-R-35B).
+(SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B, Command-R-35B,
+Whisper-large-v3, Llama-3.2-Vision-11B).
 
   * norms: RMSNorm (with optional Gemma-style 1 + w), LayerNorm;
   * rotary embeddings;
-  * GQA/MQA self-attention, causal or sliding-window, through the
-    `flash_attention` kernel over a sequence, and against a decode cache
-    (`decode_attention`, or the rolling buffer of a sliding window) for
-    one new token;
+  * GQA/MQA self-attention, causal, bidirectional or sliding-window,
+    through the `flash_attention` kernel over a sequence, and against a
+    decode cache (`decode_attention`, or the rolling buffer of a sliding
+    window) for one new token;
+  * cross-attention to a memory (encoder states, vision tokens), through
+    the `flash_attention` kernel, non-causal, over a sequence, and
+    against its cached keys and values (`decode_attention`) for one new
+    token; optionally tanh-gated;
   * gated or plain SiLU/GeLU MLPs;
   * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel
     over a sequence, with its (h, conv history) state for decode.
@@ -18,8 +23,8 @@ Weights keep the reference's (in, out) layout, so a projection is
 output, as the reference's ``preferred_element_type`` + cast does);
 norms, softmax and gates in float32.
 
-Not ported yet (ROADMAP.md §A8): cross-attention, MLA, mixture of
-experts and the xLSTM mixers; each raises `NotImplementedError`.
+Not ported yet (ROADMAP.md §A8): MLA, mixture of experts and the xLSTM
+mixers; each raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -180,6 +185,58 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         kv = cache
     y = o.transpose(1, 2).reshape(b, s, hq * dh)
     return _proj(y, p["wo"], p.get("bo")), kv
+
+
+# -- cross-attention (GQA) ----------------------------------------------
+
+def init_cross_attention(gen, cfg, dtype) -> Params:
+    d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    s = d ** -0.5
+    return {
+        "wq": _normal(gen, (d, hq * dh), s, dtype),
+        "wk": _normal(gen, (d, hkv * dh), s, dtype),
+        "wv": _normal(gen, (d, hkv * dh), s, dtype),
+        "wo": _normal(gen, (hq * dh, d), s, dtype),
+        "qnorm": init_norm(dh, "rmsnorm", dtype, gen.device),
+        "knorm": init_norm(dh, "rmsnorm", dtype, gen.device),
+        "gate_attn": torch.zeros((1,), dtype=dtype, device=gen.device),
+    }
+
+
+def cross_attention(p: Params, x: torch.Tensor,
+                    memory: Optional[torch.Tensor], cfg, gated: bool = False,
+                    cache: Optional[Params] = None):
+    """Attention of x (B, S, d) to a memory (B, M, d) -> (y (B, S, d),
+    kv). kv is ``{"k", "v"}`` (B, Hkv, M, Dh): the memory's projections
+    before the key norm (the reference's cache layout), made here when
+    no `cache` is given, else the cache itself. q and k are RMS-normed
+    per head; over a sequence the `flash_attention` kernel attends
+    non-causally with no padding of M, and one token (S = 1) attends
+    through `decode_attention` with no mask (the reference's
+    `mha_reference` there). With `gated`, y is scaled by
+    ``tanh(gate_attn)``, the gate in float32."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = matmul(x, p["wq"]).reshape(b, s, hq, dh).transpose(1, 2)
+    if cache is None:
+        if memory is None:
+            raise ValueError("cross-attention needs a memory (frontend "
+                             "embeddings) or a cache")
+        m = memory.shape[1]
+        cache = {n: matmul(memory, p[w]).reshape(b, m, hkv, dh)
+                 .transpose(1, 2).contiguous()
+                 for n, w in (("k", "wk"), ("v", "wv"))}
+    q = rms_norm(q, p["qnorm"]["w"])
+    k = rms_norm(cache["k"], p["knorm"]["w"])
+    if s == 1:
+        o = decode_attention(q, k, cache["v"])
+    else:
+        o = flash_attention(q, k, cache["v"], False, None, None, 0,
+                            cfg.use_kernels)
+    y = matmul(o.transpose(1, 2).reshape(b, s, hq * dh), p["wo"])
+    if gated:
+        y = torch.tanh(p["gate_attn"].float()).to(y.dtype) * y
+    return y, cache
 
 
 # -- MLP -------------------------------------------------------------------

@@ -7,10 +7,22 @@ Parameters are the reference's tree in PyTorch: ``{"embed",
 segment's periods of a tuple of block dicts, one per pattern entry (the
 reference stacks the periods on a leading axis for ``lax.scan``; here
 each period's blocks are their own tensors and `_run_segments` loops
-over them). `convert.params_from_jax` maps the reference's tree onto
-this one. A decode cache has the same layout: ``{"pos": 0-d int32 on
-the device, "segments": [[(block cache, ...) per period] per
-segment]}``, mapped by `convert.cache_from_jax` / `cache_to_numpy`.
+over them); an untied head adds ``"lm_head"`` (d, V), an encoder
+``"enc_segments"`` (laid out by ``cfg.enc_segments()``) and
+``"enc_final_norm"``, a frontend narrower or wider than the model
+``"frontend_proj"`` (frontend_dim, d). `convert.params_from_jax` maps
+the reference's tree onto this one. A decode cache has the same layout:
+``{"pos": 0-d int32 on the device, "segments": [[(block cache, ...) per
+period] per segment]}``, mapped by `convert.cache_from_jax` /
+`cache_to_numpy`; a cross-attention block's cache holds the memory's
+keys and values, ``"xk"`` / ``"xv"`` (B, Hkv, M, Dh), from the prefill.
+
+Encoder-decoder (Whisper) and cross-attention (Llama-3.2-Vision) models
+take frontend-stub embeddings (B, M, frontend_dim): the encoder's
+bidirectional blocks turn them into the memory that 'dec' (causal self-
+plus cross-attention) blocks attend to, or, without an encoder, they
+are projected to d and 'xattn' blocks attend to them. Models without
+rotary embeddings (rope_theta 0) add sinusoidal positions.
 
 Entry points:
   forward(mode='train')                  -> logits
@@ -18,11 +30,11 @@ Entry points:
   decode_step                            -> (next-token logits, cache)
   make_cache, lm_loss
 
-Ported: decoder-only LMs whose blocks are 'attn' / 'swa' / 'rglru'
-mixers with a 'dense' FFN and RMSNorm or LayerNorm. Cross-attention
-('dec', 'xattn'), MLA, MoE FFNs, the xLSTM mixers, encoders, frontends,
-MTP, untied heads, sinusoidal positions and rematerialisation raise
-`NotImplementedError` (ROADMAP.md §A8).
+Ported: blocks whose mixers are 'attn', 'swa', 'bidir', 'xattn', 'dec'
+or 'rglru' with a 'dense' FFN and RMSNorm or LayerNorm, encoders,
+frontend stubs, untied heads and sinusoidal positions. MLA, MoE FFNs,
+the xLSTM mixers, MTP and rematerialisation raise `NotImplementedError`
+(ROADMAP.md §A8).
 """
 from __future__ import annotations
 
@@ -36,21 +48,19 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 F32 = torch.float32
+MIXERS = ("attn", "swa", "bidir", "xattn", "dec", "rglru")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    for pat, _ in cfg.segments():
+    for pat, _ in cfg.segments() + cfg.enc_segments():
         for bd in pat:
-            if bd.mixer not in ("attn", "swa", "rglru") or bd.ffn != "dense":
+            if bd.mixer not in MIXERS or bd.ffn != "dense":
                 raise NotImplementedError(
                     f"block {bd} is {L.NOT_PORTED}")
     if cfg.norm not in L.NORMS:
         raise NotImplementedError(f"norm {cfg.norm!r} is {L.NOT_PORTED}")
-    if cfg.enc_layers or cfg.frontend or cfg.mtp or not cfg.tie_embeddings \
-            or not cfg.rope_theta:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, frontends, MTP, untied heads and "
-            f"sinusoidal positions are {L.NOT_PORTED}")
+    if cfg.mtp:
+        raise NotImplementedError(f"{cfg.name}: MTP is {L.NOT_PORTED}")
     if cfg.remat != "none":
         raise NotImplementedError(f"remat={cfg.remat!r} is {L.NOT_PORTED}")
 
@@ -58,12 +68,19 @@ def _check_ported(cfg: ModelConfig) -> None:
 # -- init --------------------------------------------------------------------
 
 def _init_block(gen, bd: BlockDef, cfg: ModelConfig, dtype) -> Params:
-    p: Params = {"norm1": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)}
-    if bd.mixer in ("attn", "swa"):
+    norm = lambda: L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
+    p: Params = {"norm1": norm()}
+    if bd.mixer in ("attn", "swa", "bidir"):
         p["mixer"] = L.init_attention(gen, cfg, dtype)
+    elif bd.mixer == "xattn":
+        p["mixer"] = L.init_cross_attention(gen, cfg, dtype)
+    elif bd.mixer == "dec":
+        p["mixer"] = L.init_attention(gen, cfg, dtype)
+        p["cross"] = L.init_cross_attention(gen, cfg, dtype)
+        p["norm_cross"] = norm()
     else:
         p["mixer"] = L.init_rglru_block(gen, cfg, dtype)
-    p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device)
+    p["norm2"] = norm()
     p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype)
     return p
 
@@ -75,13 +92,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     _check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dtype = cfg.torch_dtype
-    return {
-        "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model),
-                           cfg.d_model ** -0.5, dtype),
-        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dtype, gen.device),
-        "segments": [[tuple(_init_block(gen, bd, cfg, dtype) for bd in pat)
-                      for _ in range(n)] for pat, n in cfg.segments()],
-    }
+    d = cfg.d_model
+    segments = lambda layout: [
+        [tuple(_init_block(gen, bd, cfg, dtype) for bd in pat)
+         for _ in range(n)] for pat, n in layout]
+    p = {"embed": L._normal(gen, (cfg.vocab_size, d), d ** -0.5, dtype),
+         "final_norm": L.init_norm(d, cfg.norm, dtype, gen.device),
+         "segments": segments(cfg.segments())}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L._normal(gen, (d, cfg.vocab_size), d ** -0.5, dtype)
+    if cfg.enc_layers:
+        p["enc_segments"] = segments(cfg.enc_segments())
+        p["enc_final_norm"] = L.init_norm(d, cfg.norm, dtype, gen.device)
+    if cfg.frontend and cfg.frontend_dim and cfg.frontend_dim != d:
+        p["frontend_proj"] = L._normal(gen, (cfg.frontend_dim, d),
+                                       cfg.frontend_dim ** -0.5, dtype)
+    return p
 
 
 # -- caches ------------------------------------------------------------------
@@ -90,11 +116,17 @@ def _block_cache(bd: BlockDef, cfg: ModelConfig, b: int, cache_len: int,
                  dtype, device) -> Params:
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     hkv, dh = cfg.num_kv_heads, cfg.hd
-    if bd.mixer == "attn":
+    mt = cfg.n_frontend_tokens
+    if bd.mixer in ("attn", "bidir"):
         return {"k": z(b, hkv, cache_len, dh), "v": z(b, hkv, cache_len, dh)}
     if bd.mixer == "swa":
         w = min(cfg.window, cache_len)
         return {"k": z(b, hkv, w, dh), "v": z(b, hkv, w, dh)}
+    if bd.mixer == "dec":
+        return {"k": z(b, hkv, cache_len, dh), "v": z(b, hkv, cache_len, dh),
+                "xk": z(b, hkv, mt, dh), "xv": z(b, hkv, mt, dh)}
+    if bd.mixer == "xattn":
+        return {"xk": z(b, hkv, mt, dh), "xv": z(b, hkv, mt, dh)}
     if bd.mixer == "rglru":
         w = cfg.rec_width or cfg.d_model
         return {"h": z(b, w), "conv": z(b, 3, w)}
@@ -141,21 +173,40 @@ def _prefill_kv(kv: Params, window: Optional[int], cache_len: int) -> Params:
 def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, cache: Optional[Params] = None,
                  cache_pos: Optional[torch.Tensor] = None,
-                 prefill_len: Optional[int] = None):
+                 prefill_len: Optional[int] = None,
+                 memory: Optional[torch.Tensor] = None):
     """(x, new_cache). With `prefill_len` (and no cache) builds the
     block's fresh cache; with a cache, decodes one token against it (an
-    attention cache is updated in place)."""
+    attention cache is updated in place). 'xattn' and 'dec' blocks attend
+    to `memory` (B, M, d) when they have no cache."""
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     new_cache = None
-    if bd.mixer in ("attn", "swa"):
+    if bd.mixer in ("attn", "swa", "bidir", "dec"):
         window = cfg.window if bd.mixer == "swa" else None
-        y, kv = L.attention(p["mixer"], h, cfg, positions, True, window,
-                            cache, cache_pos)
+        sc = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+        y, kv = L.attention(p["mixer"], h, cfg, positions,
+                            bd.mixer != "bidir", window, sc, cache_pos)
         if cache is not None:
             new_cache = kv
         elif prefill_len is not None:
+            # the keys as attention made them (after qk_norm, as a decode
+            # step writes them; the reference's 'dec' prefill skips
+            # qk_norm: ROADMAP.md §C5)
             new_cache = _prefill_kv(kv, window, prefill_len)
         del kv
+        if bd.mixer == "dec":  # then cross-attention, its own residual
+            x = x + y
+            h = L.apply_norm(x, p["norm_cross"], cfg.norm)
+            xc = None if cache is None else {"k": cache["xk"],
+                                             "v": cache["xv"]}
+            y, xc = L.cross_attention(p["cross"], h, memory, cfg, False, xc)
+            if new_cache is not None:
+                new_cache.update(xk=xc["k"], xv=xc["v"])
+    elif bd.mixer == "xattn":
+        xc = None if cache is None else {"k": cache["xk"], "v": cache["xv"]}
+        y, xc = L.cross_attention(p["mixer"], h, memory, cfg, True, xc)
+        if cache is not None or prefill_len is not None:
+            new_cache = {"xk": xc["k"], "xv": xc["v"]}
     elif bd.mixer == "rglru":
         y, new_cache = L.rglru_block(p["mixer"], h, cfg, cache,
                                      return_state=prefill_len is not None)
@@ -170,7 +221,8 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
                   cfg: ModelConfig, positions: torch.Tensor,
                   cache_segs: Optional[List] = None,
                   cache_pos: Optional[torch.Tensor] = None,
-                  prefill_len: Optional[int] = None):
+                  prefill_len: Optional[int] = None,
+                  memory: Optional[torch.Tensor] = None):
     """x through every period of every segment, in order: (x, the new
     caches in the cache layout, or None when none was asked for)."""
     want = cache_segs is not None or prefill_len is not None
@@ -183,7 +235,7 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
             new_per = []
             for bd, pp, cc in zip(pat, period, cper):
                 x, c = _apply_block(bd, pp, x, cfg, positions, cc, cache_pos,
-                                    prefill_len)
+                                    prefill_len, memory=memory)
                 new_per.append(c)
             new_seg.append(tuple(new_per))
         out.append(new_seg)
@@ -192,25 +244,71 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
 
 # -- entry points -------------------------------------------------------
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(S, d) float32: sin then cos of positions (S,) over d / 2
+    geometric frequencies from 1 to 1 / 10,000. `positions` may be a
+    device tensor (a decode step's position): nothing is read back."""
+    half, dev = d // 2, positions.device
+    step = torch.full((), 10_000.0, device=dev).log() / (half - 1)
+    freq = torch.exp(-torch.arange(half, dtype=F32, device=dev) * step)
+    ang = positions[:, None].to(F32) * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _with_positions(x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """x plus sinusoidal positions when the model has no rotary
+    embeddings (rope_theta 0), else x."""
+    if cfg.rope_theta:
+        return x
+    return x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor):
     x = params["embed"][tokens.long()] * (cfg.emb_scale or 1.0)
-    return x.to(cfg.torch_dtype)
+    return _with_positions(x.to(cfg.torch_dtype), cfg, positions)
+
+
+def _frontend(params: Params, cfg: ModelConfig, frontend_embeds):
+    x = frontend_embeds.to(cfg.torch_dtype)
+    if "frontend_proj" in params:
+        x = L.matmul(x, params["frontend_proj"])
+    return x
+
+
+def _encode(params: Params, cfg: ModelConfig, frontend_embeds):
+    """The encoder stack (Whisper) over frontend-stub embeddings."""
+    x = _frontend(params, cfg, frontend_embeds)
+    mpos = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_segments(params["enc_segments"], cfg.enc_segments(),
+                         _with_positions(x, cfg, mpos), cfg, mpos)
+    return L.apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _memory(params: Params, cfg: ModelConfig, frontend_embeds):
+    """What cross-attention attends to: the encoder's output, or the
+    projected frontend embeddings; None without embeddings. A model with
+    no cross-attention accepts embeddings and leaves them unused."""
+    if frontend_embeds is None:
+        return None
+    if cfg.enc_layers:
+        return _encode(params, cfg, frontend_embeds)
+    return _frontend(params, cfg, frontend_embeds)
 
 
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """float32 logits: the tied head's product accumulates and stays in
-    float32 (the reference's ``preferred_element_type=float32``)."""
+    """float32 logits: the head's product (the untied ``lm_head``, else
+    the embedding's transpose) accumulates and stays in float32 (the
+    reference's ``preferred_element_type=float32``)."""
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = torch.matmul(x.float(), params["embed"].float().T)
+    head = params.get("lm_head")
+    head = params["embed"].T if head is None else head
+    logits = torch.matmul(x.float(), head.float())
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
-
-
-def _no_frontend(frontend_embeds) -> None:
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"frontend embeddings are {L.NOT_PORTED}")
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -218,9 +316,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: Optional[int] = None):
     """mode='train' -> logits (B, S, V) float32; mode='prefill' ->
     (logits, a decode cache of `cache_len` positions holding the S
-    prompt tokens, its "pos" S)."""
+    prompt tokens, its "pos" S). `frontend_embeds` (B, M, frontend_dim)
+    on the tokens' device feed the encoder or the cross-attention
+    blocks."""
     _check_ported(cfg)
-    _no_frontend(frontend_embeds)
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}")
     if mode == "prefill" and cache_len is None:
@@ -228,8 +327,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x, caches = _run_segments(
-        params["segments"], cfg.segments(), _embed(params, cfg, tokens), cfg,
-        positions, prefill_len=cache_len if mode == "prefill" else None)
+        params["segments"], cfg.segments(),
+        _embed(params, cfg, tokens, positions), cfg, positions,
+        prefill_len=cache_len if mode == "prefill" else None,
+        memory=_memory(params, cfg, frontend_embeds))
     logits = _logits(params, cfg, x)
     if mode == "train":
         return logits
@@ -243,13 +344,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     (logits (B, 1, V) float32, cache). The cache is updated in place:
     its attention buffers are written at the new position, its RG-LRU
     states and "pos" (now pos + 1) replaced, and the same dict is
-    returned."""
+    returned. `frontend_embeds` is accepted, as the reference's is, and
+    not read: cross-attention attends to the keys and values its
+    prefill cached (the reference encodes the embeddings again and
+    discards the result)."""
     _check_ported(cfg)
-    _no_frontend(frontend_embeds)
+    del frontend_embeds
     pos = cache["pos"]
+    positions = pos[None]
     x, caches = _run_segments(params["segments"], cfg.segments(),
-                              _embed(params, cfg, token), cfg, pos[None],
-                              cache["segments"], pos)
+                              _embed(params, cfg, token, positions), cfg,
+                              positions, cache["segments"], pos)
     logits = _logits(params, cfg, x)
     cache["segments"], cache["pos"] = caches, pos + 1
     return logits, cache
@@ -268,6 +373,8 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor, z_loss: float):
 
 
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            targets: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:
+            targets: torch.Tensor, frontend_embeds=None,
+            z_loss: float = 1e-4) -> torch.Tensor:
     """Mean next-token cross-entropy (+ z-loss) over targets >= 0."""
-    return _ce(forward(params, cfg, tokens), targets, z_loss)
+    return _ce(forward(params, cfg, tokens, frontend_embeds), targets,
+               z_loss)
