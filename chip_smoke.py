@@ -10,7 +10,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      each kernel's registers as ptxas reports them, and the count of
      HGMMA (wgmma) instructions in each `flash_attention_fwd`
      instantiation from `cuobjdump -sass` (bf16 > 0: the tensor cores;
-     float32 0; bf16 D = 256 with no spills), and the general L2
+     float32 0; bf16 D = 256 and MLA's 192 / 128 with no spills), and
+     the general L2
      kernel's registers, static shared memory and spills;
   2. holds each kernel against its plain PyTorch version on the card at
      the n = 1e6 shapes (exact equality), and times kernel and plain: the
@@ -167,27 +168,38 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      over 8 x 1,500 seeded frontend embeddings (30 s of audio a row), a
      128-token prompt and 64 steps; Llama-3.2-Vision-11B (full config,
      40 layers, a gated cross-attention block every 5th, its gates set
-     to 1) 4 x 2,048 with 4,100 vision embeddings a row, 32 steps. Held
-     at 2e-2 relative (max |a - b| / max |b|), block by block in
-     lockstep: each block, an encoder's too, with its kernels against
-     its plain version on the same input and memory (output and cache
-     tensors), and each decoder block's decode at the first and last
-     step against the train forward over the prompt and the generated
-     tokens; the first greedy tokens equal to the plain prefill's. End
-     to end (reported, beside PyTorch's SDPA in the kernel's place): the
-     prefill against the plain one, each decode step against the train
-     forward, the first block where they part, the argmax agreement.
+     to 1) 4 x 2,048 with 4,100 vision embeddings a row, 32 steps;
+     DeepSeek-V3 at full width, depth 4 (its 3 dense MLA layers and 1
+     MoE layer), and Arctic at full width, depth 2 ('dense_moe'), each 4
+     x 2,048 and 32 steps. Held at 2e-2 relative (max |a - b| / max
+     |b|), block by block in lockstep: each block, an encoder's too,
+     with its kernels against its plain version on the same input and
+     memory (output and cache tensors), and each decoder block's decode
+     at the first and last step against the train forward over the
+     prompt and the generated tokens; a MoE block taken apart (its
+     mixer and mixer cache; its FFN on the tokens whose experts and kept
+     pairs agree; the share of tokens picking another top-k set at most
+     1.25 x SDPA's in the kernel's place; the dropped pairs reported; at
+     decode its FFN against the forward's run again on the same B
+     tokens, at most one of which picks another top-k set); the first
+     greedy tokens equal to the plain prefill's. End to end (reported,
+     beside PyTorch's SDPA in the kernel's place): the prefill against
+     the plain one, each decode step against the train forward, the
+     first block where they part, the argmax agreement.
      Prefill ms and tokens/s, decode ms a step and tokens/s, one decode
-     step profiled (and a frontend cell's prefill), one layer's decode
-     attention (and cross-attention) and the float32 head timed, peak
+     step profiled (and a frontend or MoE cell's prefill), one layer's
+     decode attention (MLA's absorption form; cross-attention) and the
+     float32 head timed, peak
      memory. Then
      `flash_attention_fwd` at the serving cells' prefill shapes (Gemma
      (4, 16 / 16, 2048, 256), MiniCPM (4, 36 / 36, 2048, 64), Command-R
      (2, 64 / 8, 2048, 128), Whisper's decoder (8, 20 / 20, 128, 64),
      causal; non-causal, Sq != Skv, ragged key edges: Whisper's encoder
      (8, 20 / 20, 1,500 x 1,500, 64), its cross-attention (128 x 1,500)
-     and Llama-Vision's (4, 32 / 8, 2,048 x 4,100, 128)) against the
-     plain pair schedule, timed beside SDPA;
+     and Llama-Vision's (4, 32 / 8, 2,048 x 4,100, 128); DeepSeek's MLA
+     (4, 128 / 128, 2,048, q and k 192, v 128) and Arctic's (4, 56 / 8,
+     2,048, 128), causal) against the plain pair schedule, timed beside
+     SDPA;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
@@ -284,7 +296,7 @@ PATH_KERNELS = {
     # phase 18: the elastic drills with kernels; run_plain with resume
     "control": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
     "train_smollm_resume": {"flash_attention_fwd"},
-    # phase 19: the six serving cells' prefills and decode steps
+    # phase 19: the eight serving cells' prefills and decode steps
     "serve_lm": {"flash_attention_fwd", "rglru_scan"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
@@ -760,16 +772,25 @@ def phase_l2_cuda_tests() -> str:
 
 # -- phase 1: what the flash kernels were compiled to -------------------------
 
-FLASH_FN = re.compile(r"flash_fwd_(bf16|f32)_kernelILi(\d+)EE")
+FLASH_FN = re.compile(r"flash_fwd_(bf16|f32)_kernelILi(\d+)ELi(\d+)EE")
+
+
+def flash_name(mt) -> str:
+    """"bf16 D256" for a square instantiation, "bf16 D192/128" else."""
+    dk, dv = mt.group(2), mt.group(3)
+    return f"{mt.group(1)} D{dk}" + ("" if dk == dv else f"/{dv}")
 
 
 def flash_sass_report(out_dir) -> dict:
-    """Per flash instantiation ("bf16 D256", ...): its HGMMA (wgmma)
-    instructions in `cuobjdump -sass` of the built library, and the
-    registers and spill bytes ptxas reported. Asserts that every bf16
-    instantiation runs on the tensor cores (HGMMA > 0), that the float32
-    ones do not (0), and that bf16 D = 256 spills nothing."""
+    """Per flash instantiation ("bf16 D256", "bf16 D192/128", ...): its
+    HGMMA (wgmma) instructions in `cuobjdump -sass` of the built library,
+    and the registers and spill bytes ptxas reported. Asserts that every
+    bf16 instantiation runs on the tensor cores (HGMMA > 0), that the
+    float32 ones do not (0), and that bf16 D = 256 and D = 192/128 spill
+    nothing. Every (key width, value width) pair the wrapper accepts
+    (`HEAD_PAIRS`) must have been compiled."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import HEAD_PAIRS
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run(
@@ -780,7 +801,7 @@ def flash_sass_report(out_dir) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             mt = FLASH_FN.search(line)
-            name = f"{mt.group(1)} D{mt.group(2)}" if mt else None
+            name = flash_name(mt) if mt else None
             if name:
                 rep[name] = {"hgmma": 0}
         elif name and "HGMMA" in line:
@@ -790,18 +811,21 @@ def flash_sass_report(out_dir) -> dict:
             "flash_attention", "").splitlines():
         mt = FLASH_FN.search(line)
         if "Compiling entry function" in line and mt:
-            name = f"{mt.group(1)} D{mt.group(2)}"
+            name = flash_name(mt)
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill", line)
             rep.setdefault(name, {})["spill_bytes"] = int(st) + int(ld)
         elif name and "Used" in line:
             rep[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
-    for d in (16, 32, 64, 128, 256):
-        assert rep[f"bf16 D{d}"]["hgmma"] > 0, f"bf16 D{d}: no HGMMA"
-        assert rep[f"f32 D{d}"]["hgmma"] == 0, f"f32 D{d}: HGMMA"
-    if "spill_bytes" in rep.get("bf16 D256", {}):  # ptxas report kept
-        assert rep["bf16 D256"]["spill_bytes"] == 0, "bf16 D256 spills"
+    for dk, dv in HEAD_PAIRS:
+        tail = f"D{dk}" + ("" if dk == dv else f"/{dv}")
+        assert rep[f"bf16 {tail}"]["hgmma"] > 0, f"bf16 {tail}: no HGMMA"
+        assert rep[f"f32 {tail}"]["hgmma"] == 0, f"f32 {tail}: HGMMA"
+    for tail in ("D256", "D192/128"):
+        if "spill_bytes" in rep.get(f"bf16 {tail}", {}):  # report kept
+            assert rep[f"bf16 {tail}"]["spill_bytes"] == 0, \
+                f"bf16 {tail} spills"
     return rep
 
 
@@ -1863,35 +1887,40 @@ def flash_rows(dev, rows: dict, iters: int, gen, cases,
     """`flash_attention_fwd` o and lse against the plain pair schedule on
     bf16 inputs drawn from `gen` at each (tag, shape) of `cases`: (B, Hq,
     Hkv, S, D, window), causal over Skv = S keys, or (B, Hq, Hkv, Sq, D,
-    window, Skv, causal); timed beside its bound (operations at the bf16
-    tensor-core rate) and SDPA; with `clocks`, the SM clock and power
-    under the kernel and under SDPA."""
+    window, Skv, causal), where D is the head width or a (Dqk, Dv) pair;
+    timed beside its bound (operations at the bf16 tensor-core rate: 2
+    (Dqk + Dv) flops a visible pair) and SDPA; with `clocks`, the SM
+    clock and power under the kernel and under SDPA."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      pair_fwd)
 
     for tag, (bb, hq, hkv, sq, dh, window, *rest) in cases:
         skv, causal = rest or (sq, True)
+        dh, dv = dh if isinstance(dh, tuple) else (dh, dh)
         draw = lambda *shape: torch.randn(shape, generator=gen,
                                           device=dev).bfloat16()
         q = draw(bb, hq, sq, dh)
         k = draw(bb, hkv, skv, dh)
-        v = draw(bb, hkv, skv, dh)
+        v = draw(bb, hkv, skv, dv)
         got = flash_attention_fwd(q, k, v, causal, window)
         want = pair_fwd(q, k, v, causal, window, None)
         sync(dev)
         err = float_err(got[:1], want[:1], "flash_attention_fwd")
         err_l = float_err(got[1:], want[1:], "flash_lse")
         pairs = band_pairs(sq, causal, window, skv) * bb * hq
-        io = (2 * q.numel() + 2 * k.numel()) * 2 + 4 * bb * hq * sq
+        # q, k, v read once, o and the float32 lse written once
+        io = (q.numel() + k.numel() + v.numel() + bb * hq * sq * dv) * 2 \
+            + 4 * bb * hq * sq
         lib = sdpa_time(dev, q, k, v, causal, window, iters)
         kern = lambda: flash_attention_fwd(q, k, v, causal, window)
         record_row(rows, dev, iters, "flash_attention_fwd", kern,
                    lambda: pair_fwd(q, k, v, causal, window, None), err, io,
-                   4 * dh * pairs, BF16_FLOPS_PER_S, max(1, iters // 4), tag,
-                   library=lib[:2])
+                   2 * (dh + dv) * pairs, BF16_FLOPS_PER_S,
+                   max(1, iters // 4), tag, library=lib[:2])
         fig = rows["flash_attention_fwd"]["shapes"][tag]
-        fig["shape"] = [bb, hq, hkv, sq, dh, window, skv, causal]
+        fig["shape"] = [bb, hq, hkv, sq, dh, window, skv, causal] + (
+            [] if dv == dh else [dv])
         fig["lse_max_abs_err"] = err_l
         if clocks:
             fig["sm_mhz_power_w"] = {"kernel": clocks_under(kern, dev),
@@ -3456,10 +3485,15 @@ SERVE_CELLS = (("gemma-7b", None, 4, 2048, 64, 0),
                # 30 s of audio (Whisper's fixed window) a row; the cache's
                # 192 positions stay under its 448-token text context
                ("whisper-large-v3", None, 8, 128, 64, 1500),
-               ("llama-3.2-vision-11b", None, 4, 2048, 32, 4100))
+               ("llama-3.2-vision-11b", None, 4, 2048, 32, 4100),
+               # the 3 leading dense layers and 1 MoE layer of 61 (one
+               # MoE layer is 22.6 GB of bf16 weights); 15.1 B params
+               ("deepseek-v3-671b", 4, 4, 2048, 32, 0),
+               # 2 'dense_moe' layers of 35 (27.2 GB each); 27.7 B params
+               ("arctic-480b", 2, 4, 2048, 32, 0))
 # flash_attention_fwd at the serving cells' prefill shapes: (B, Hq, Hkv,
 # Sq, D, window) causal with Skv = Sq, or (B, Hq, Hkv, Sq, D, window, Skv,
-# causal)
+# causal); D is an int, or (Dqk, Dv) for a value width unlike the key's
 SERVE_FLASH = (("gemma_7b", (4, 16, 16, 2048, 256, None)),
                ("minicpm_2b", (4, 36, 36, 2048, 64, None)),
                ("command_r_35b", (2, 64, 8, 2048, 128, None)),
@@ -3467,7 +3501,9 @@ SERVE_FLASH = (("gemma_7b", (4, 16, 16, 2048, 256, None)),
                ("whisper_cross", (8, 20, 20, 128, 64, None, 1500, False)),
                ("whisper_decoder", (8, 20, 20, 128, 64, None)),
                ("llama_vision_cross",
-                (4, 32, 8, 2048, 128, None, 4100, False)))
+                (4, 32, 8, 2048, 128, None, 4100, False)),
+               ("deepseek_mla", (4, 128, 128, 2048, (192, 128), None)),
+               ("arctic", (4, 56, 8, 2048, 128, None)))
 # the gate of every gated cross-attention block: `init_params` (as the
 # reference's) makes it 0, and tanh(0) = 0 would take the block out
 SERVE_GATE = 1.0
@@ -3487,7 +3523,11 @@ class BlockRecord:
     (`calls`: block, params, positions, prefill_len, memory), in the
     order the model applies the blocks: an encoder's first, then the
     decoder's, which hold the memory (the encoder's output) of that run
-    (wraps `models.model._apply_block`)."""
+    (wraps `models.model._apply_block`). With `attend`, every block runs
+    it in `flash_attention_fwd`'s place (the block's own argument)."""
+
+    def __init__(self, attend=None):
+        self.attend = attend
 
     def __enter__(self):
         from repro_torch.models import model as M
@@ -3498,7 +3538,7 @@ class BlockRecord:
         def keep(bd, p, x, cfg, positions, cache=None, cache_pos=None,
                  prefill_len=None, memory=None):
             y, c = self._real(bd, p, x, cfg, positions, cache, cache_pos,
-                              prefill_len, memory=memory)
+                              prefill_len, memory=memory, attend=self.attend)
             self.ins.append(x)
             self.outs.append(y)
             self.caches.append(c)
@@ -3553,37 +3593,112 @@ def recorded_prefill(params, cfg, tokens, cache_len: int, fe=None,
     """A prefill (with frontend embeddings `fe`) with every block's call
     recorded; with `attention`, that stands in for `flash_attention_fwd`.
     Returns (the record, last-position logits, the cache)."""
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import model as M
 
-    real = ops.flash_attention_fwd
-    ops.flash_attention_fwd = attention or real
-    try:
-        with BlockRecord() as rec:
-            logits, cache = M.forward(params, cfg, tokens, fe, mode="prefill",
-                                      cache_len=cache_len)
-    finally:
-        ops.flash_attention_fwd = real
+    with BlockRecord(attention) as rec:
+        logits, cache = M.forward(params, cfg, tokens, fe, mode="prefill",
+                                  cache_len=cache_len)
     last = logits[:, -1].clone()
     return rec, last, cache
+
+
+MOE_FFNS = ("moe", "dense_moe")
+# a MoE block's lockstep at prefill: the share of its tokens that pick
+# another top-k set with the kernels than with their plain versions may
+# be at most this many times the share that SDPA in the kernel's place
+# flips on the same input. A bf16 router is discontinuous: any rounding
+# difference in its input flips the tokens whose k-th and (k+1)-th
+# logits lie within it. On an NVIDIA H100 80GB HBM3 at 700 W the kernel
+# and SDPA flip 1.9897 % and 1.9043 % of DeepSeek-V3's 8,192 tokens
+# (top-8 of 256), Arctic's 1.1719 % and 1.2085 %, 0.5737 % and 0.5615 %
+# (top-2 of 128): ratios 1.045, 0.970, 1.022
+MOE_FLIP_RATIO = 1.25
+# at a decode step, how many of the batch's tokens may pick another
+# top-k set than the train forward's routing of the same tokens (a few
+# tokens cannot resolve a share of ~2 %)
+MOE_DECODE_FLIPS = 1
+
+
+def block_parts(bd, pp, x, cfg, pos, cache=None, cache_pos=None,
+                prefill_len=None, attend=None):
+    """The model's block (`_apply_block`) on x with its parts kept:
+    (the parts: its mixer's output, the FFN's normed input and output,
+    a MoE's experts and kept pairs; its cache)."""
+    from repro_torch.models import model as M
+
+    parts = {}
+    _, c = M._apply_block(bd, pp, x, cfg, pos, cache, cache_pos,
+                          prefill_len, attend=attend, parts=parts)
+    return parts, c
+
+
+def moe_lockstep(a: dict, b: dict) -> dict:
+    """Two runs of a MoE block over the same tokens, each its parts
+    (`block_parts`): the mixer's relative error; the FFN's on the tokens
+    whose experts (in order) and kept pairs agree; the tokens whose top-k
+    set differs (a share and a count); each run's share of dropped
+    (token, slot) pairs."""
+    ea, eb, ka, kb = (t.reshape(-1, t.shape[-1]) for t in (
+        a["experts"], b["experts"], a["keep"], b["keep"]))
+    agree = (ea == eb).all(-1) & (ka == kb).all(-1)
+    flat = lambda f: f.reshape(-1, f.shape[-1])
+    n = int(agree.sum())
+    flipped = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+    return {"mixer": rel_err(a["mixer"], b["mixer"]),
+            "ffn_agreeing": rel_err(flat(a["ffn"])[agree],
+                                    flat(b["ffn"])[agree]) if n else None,
+            "topk_set_differs": float(flipped.float().mean()),
+            "flipped_tokens": int(flipped.sum()),
+            "tokens": agree.numel(), "agreeing_tokens": n,
+            "dropped": 1.0 - float(ka.float().mean()),
+            "dropped_other": 1.0 - float(kb.float().mean())}
+
+
+def moe_bound_err(rec: dict) -> float:
+    """The error a MoE block's lockstep holds to SERVE_BOUND: its mixer's
+    and its FFN's on the agreeing tokens, of which there must be one."""
+    assert rec["agreeing_tokens"], (
+        f"a MoE block's FFN was compared on no token: no token's routing "
+        f"agrees ({rec})")
+    return max(rec["mixer"], rec["ffn_agreeing"])
 
 
 def lockstep_prefill(cfg, rec):
     """Each block with `cfg`'s kernels, fed the input (and a decoder
     block the memory) that block had in the recorded (plain) prefill, an
     encoder's blocks too: the larger relative error of its output and of
-    each of its cache tensors against that run's, block by block."""
+    each of its cache tensors against that run's, block by block. A MoE
+    block runs with the kernels, with their plain versions and with SDPA
+    in the kernel's place on that input, its parts kept (`block_parts`):
+    its error is its mixer's (and cache's) and its FFN's on the tokens
+    whose routing agrees, and its `moe_lockstep` records are kept (the
+    SDPA run's under "sdpa", the yardstick of the routing's flips).
+    Returns (errors, {block index: MoE record})."""
+    import dataclasses
+
     from repro_torch.models import model as M
 
-    errs = []
-    for x, want, want_c, (bd, pp, pos, plen, mem) in zip(
-            rec.ins, rec.outs, rec.caches, rec.calls):
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    errs, moe = [], {}
+    for i, (x, want, want_c, (bd, pp, pos, plen, mem)) in enumerate(zip(
+            rec.ins, rec.outs, rec.caches, rec.calls)):
+        if bd.ffn in MOE_FFNS:
+            (got, c), (want, want_c) = (
+                block_parts(bd, pp, x, k, pos, prefill_len=plen)
+                for k in (cfg, plain))
+            lib, _ = block_parts(bd, pp, x, cfg, pos, attend=sdpa_attention)
+            moe[i] = dict(moe_lockstep(got, want),
+                          sdpa=moe_lockstep(lib, want))
+            caches = zip(_leaves(c), _leaves(want_c))
+            errs.append(max([moe_bound_err(moe[i])]
+                            + [rel_err(a, b) for a, b in caches]))
+            continue
         y, c = M._apply_block(bd, pp, x, cfg, pos, prefill_len=plen,
                               memory=mem)
         caches = [] if want_c is None else zip(_leaves(c), _leaves(want_c))
         errs.append(max([rel_err(y, want)] + [rel_err(a, b)
                                               for a, b in caches]))
-    return errs
+    return errs, moe
 
 
 def lockstep_decode(cfg, rec, at: int, cache_len: int):
@@ -3591,22 +3706,37 @@ def lockstep_decode(cfg, rec, at: int, cache_len: int):
     train forward: the block builds its cache by a prefill over the input
     (and the memory) it had there at positions < at, then decodes its
     input at `at`; the relative error against that forward's output at
-    `at`, block by block."""
+    `at`, block by block. A MoE block's decode is compared by its parts
+    (`moe_lockstep`): its mixer against the forward's mixer at `at`, its
+    FFN against the forward's FFN run again on the forward's FFN input at
+    `at` alone, the same B tokens and so the same capacity as the
+    decode's (the forward's own capacity counts every token of it).
+    Returns (errors, {block index: MoE record})."""
     import torch
     from repro_torch.models import model as M
 
     dev = rec.ins[0].device
     here = torch.tensor(at, dtype=torch.int32, device=dev)
-    errs = []
+    errs, moe = [], {}
     n_enc = encoder_blocks(cfg)
-    for x, want, (bd, pp, pos, _, mem) in zip(
-            rec.ins[n_enc:], rec.outs[n_enc:], rec.calls[n_enc:]):
+    for i, (x, want, (bd, pp, pos, _, mem)) in enumerate(zip(
+            rec.ins[n_enc:], rec.outs[n_enc:], rec.calls[n_enc:])):
         _, c = M._apply_block(bd, pp, x[:, :at], cfg, pos[:at],
                               prefill_len=cache_len, memory=mem)
+        if bd.ffn in MOE_FFNS:
+            dec, _ = block_parts(bd, pp, x[:, at:at + 1], cfg, here[None], c,
+                                 here)
+            full, _ = block_parts(bd, pp, x, cfg, pos)
+            ref = {"mixer": full["mixer"][:, at:at + 1]}
+            ref["ffn"] = M._ffn(bd, pp, full["ffn_in"][:, at:at + 1], cfg,
+                                ref)
+            moe[i] = moe_lockstep(dec, ref)
+            errs.append(moe_bound_err(moe[i]))
+            continue
         y, _ = M._apply_block(bd, pp, x[:, at:at + 1], cfg, here[None], c,
                               here)
         errs.append(rel_err(y[:, 0], want[:, at]))
-    return errs
+    return errs, moe
 
 
 def decode_parting(params, cfg, seq, at: int, cache_len: int, fe=None):
@@ -3627,10 +3757,10 @@ def decode_parting(params, cfg, seq, at: int, cache_len: int, fe=None):
 
 
 def attention_blocks(cfg, cache):
-    """(mixer, block cache) of every self-attention block with a cache,
-    in order."""
+    """(mixer, block cache) of every self-attention or MLA block with a
+    cache, in order."""
     return [(bd.mixer, c) for bd, c in model_blocks(cfg, cache["segments"])
-            if bd.mixer in ("attn", "swa", "dec")]
+            if bd.mixer in ("attn", "swa", "dec", "mla")]
 
 
 def end_to_end(last, cache_leaves, rec, want_last, want_leaves, want_rec):
@@ -3692,6 +3822,7 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     from repro_torch.kernels.wheel import launch_counts, reset_launches
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as M
+    from repro_torch.models.layers import mla_cache_attention
 
     cfg = (get_smoke_config if smoke else get_config)(arch)
     if depth:
@@ -3763,7 +3894,8 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     top = [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in
            sorted(ev, key=lambda e: -e.self_device_time_total)[:8]]
     pre_prof = None
-    if fe is not None:  # a frontend cell's prefill, profiled
+    if fe is not None or cfg.moe is not None:  # a frontend or MoE
+        # cell's prefill, profiled
         run = lambda: prefill(params, tokens, fe)
         p_wall, p_ev = device_events(dev, run, warmup=run)
         dev_ms = lambda evs: sum(e.self_device_time_total for e in evs) / 1e3
@@ -3780,7 +3912,7 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     with torch.no_grad():
         p_rec, p_last, p_cache = recorded_prefill(params, plain_cfg, tokens,
                                                   cache_len, fe)
-        lock_p = lockstep_prefill(cfg, p_rec)
+        lock_p, moe_p = lockstep_prefill(cfg, p_rec)
         p_leaves = _leaves(p_cache["segments"])
         del p_cache
         k_rec, k_last, k_cache = recorded_prefill(params, cfg, tokens,
@@ -3803,7 +3935,15 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     assert max(lock_p) <= SERVE_BOUND, (
         f"{arch}: a block with kernels differs from its plain version on "
         f"the same input by {max(lock_p):.3g} (bound {SERVE_BOUND}) at "
-        f"block {lock_p.index(max(lock_p))}")
+        f"block {lock_p.index(max(lock_p))}; MoE blocks: {moe_p}")
+    for i, r in moe_p.items():
+        assert r["topk_set_differs"] <= MOE_FLIP_RATIO * r["sdpa"][
+            "topk_set_differs"], (
+            f"{arch}: MoE block {i}'s tokens pick another top-k set with the "
+            f"kernels than with their plain versions in "
+            f"{r['topk_set_differs']:.4%} of them, more than {MOE_FLIP_RATIO}"
+            f" x the {r['sdpa']['topk_set_differs']:.4%} with SDPA in the "
+            f"kernel's place: {r}")
 
     # decode against the train forward over the prompt and the tokens fed
     seq_all = torch.cat([tokens] + fed, 1)
@@ -3815,8 +3955,10 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
             o.argmax(-1) == full[:, seq + i].argmax(-1)
             for i, o in enumerate(outs)]).float().mean())
         del full
-        lock_d = {i: lockstep_decode(cfg, t_rec, seq + i, cache_len)
-                  for i in (0, steps - 1)}
+        lock_d, moe_d = {}, {}
+        for i in (0, steps - 1):
+            lock_d[i], moe_d[i] = lockstep_decode(cfg, t_rec, seq + i,
+                                                  cache_len)
         del t_rec
         worst = max(range(steps), key=tf_errs.__getitem__)
         tf_part = (decode_parting(params, cfg, seq_all, seq + worst,
@@ -3826,24 +3968,46 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     assert lock_d_max <= SERVE_BOUND, (
         f"{arch}: a block's decode differs from the train forward on the "
         f"same inputs by {lock_d_max:.3g} (bound {SERVE_BOUND}): {lock_d}")
+    flips_d = max([r["flipped_tokens"] for d in moe_d.values()
+                   for r in d.values()] or [0])
+    assert flips_d <= MOE_DECODE_FLIPS, (
+        f"{arch}: at a decode step {flips_d} tokens of {batch} pick another "
+        f"top-k set than the train forward's routing of them (at most "
+        f"{MOE_DECODE_FLIPS}): {moe_d}")
 
     # one layer's decode attention over its full cache, and the f32 head
     gen = torch.Generator(device=dev).manual_seed(23)
     attn = attention_blocks(cfg, cache)
     mixer, blk = attn[0]
-    kc, vc = blk["k"], blk["v"]
-    ln = kc.shape[2]
-    q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
-                    device=dev).to(cfg.torch_dtype)
-    scale = cfg.attn_scale or cfg.hd ** -0.5
-    if mixer == "swa" and ln == cfg.window:  # the rolling buffer
-        valid = torch.ones((batch, ln), dtype=torch.bool, device=dev)
-        attend = lambda: cache_attention(q, kc, vc, valid, scale)
+    ln = cache_len
+    if mixer == "mla":  # the absorption form over the compressed cache
+        m = cfg.mla
+        q = torch.randn((batch, cfg.num_heads, 1,
+                         m.qk_nope_dim + m.qk_rope_dim), generator=gen,
+                        device=dev).to(cfg.torch_dtype)
+        wkv_b = [p["mixer"]["wkv_b"] for bd, p in model_blocks(
+            cfg, params["segments"]) if bd.mixer == "mla"][0].reshape(
+            m.kv_lora_rank, cfg.num_heads, m.qk_nope_dim + m.v_head_dim)
+        valid = torch.ones(ln, dtype=torch.bool, device=dev)
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+        attend = lambda: mla_cache_attention(
+            q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], blk["ckv"],
+            blk["krope"], wkv_b, valid, scale)
     else:
-        length = torch.full((batch,), cache_len, dtype=torch.int32,
-                            device=dev)
-        window = cfg.window if mixer == "swa" else None
-        attend = lambda: decode_attention(q, kc, vc, length, window, scale)
+        kc, vc = blk["k"], blk["v"]
+        ln = kc.shape[2]
+        q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
+                        device=dev).to(cfg.torch_dtype)
+        scale = cfg.attn_scale or cfg.hd ** -0.5
+        if mixer == "swa" and ln == cfg.window:  # the rolling buffer
+            valid = torch.ones((batch, ln), dtype=torch.bool, device=dev)
+            attend = lambda: cache_attention(q, kc, vc, valid, scale)
+        else:
+            length = torch.full((batch,), cache_len, dtype=torch.int32,
+                                device=dev)
+            window = cfg.window if mixer == "swa" else None
+            attend = lambda: decode_attention(q, kc, vc, length, window,
+                                              scale)
     att_ms = device_ms(attend, dev, 10)
     # a cross-attention block's decode: the cached keys normed again, then
     # `decode_attention` over the memory (plain, as the reference's)
@@ -3895,6 +4059,8 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
            "kv_cache_gb": cache_bytes / 1e9, "peak_gb_main": peak_main,
            "lockstep_prefill_max": max(lock_p),
            "lockstep_decode_max": {str(i): max(v) for i, v in lock_d.items()},
+           "moe_lockstep": {"prefill": moe_p, "decode": moe_d} if moe_p
+           else None,
            "end_to_end_vs_plain": e2e, "sdpa_floor_vs_plain": floor,
            "rerun_last_logits_equal": rerun_equal,
            "teacher_forced": {"max_rel_err": max(tf_errs),
@@ -3924,6 +4090,26 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         f"max {max(lock_p):.2e}; each block's decode vs the train forward "
         f"at steps 0 and {steps - 1}: max {lock_d_max:.2e} (bound "
         f"{SERVE_BOUND}, asserted)")
+    fmt = lambda e: "none" if e is None else f"{e:.2e}"
+    for i, r in moe_p.items():
+        dec = [moe_d[st][i - encoder_blocks(cfg)] for st in sorted(moe_d)]
+        log(f"    MoE block {i}, kernels vs plain on the plain run's input: "
+            f"mixer {r['mixer']:.2e}, FFN {fmt(r['ffn_agreeing'])} on the "
+            f"{r['agreeing_tokens']} of {r['tokens']} tokens whose routing "
+            f"and kept slots agree (bound {SERVE_BOUND}), top-k set differs "
+            f"for {r['topk_set_differs']:.4%} (SDPA in the kernel's place "
+            f"{r['sdpa']['topk_set_differs']:.4%}; bound: {MOE_FLIP_RATIO} x "
+            f"SDPA's); "
+            f"dropped (token, slot) pairs at prefill {r['dropped']:.4%}; "
+            f"decode vs the train forward (its FFN on the same tokens) at "
+            f"steps 0 and {steps - 1}: "
+            + "; ".join(f"mixer {d['mixer']:.2e}, FFN "
+                        f"{fmt(d['ffn_agreeing'])} on "
+                        f"{d['agreeing_tokens']} of {d['tokens']} tokens, "
+                        f"top-k set differs for {d['flipped_tokens']} (at "
+                        f"most {MOE_DECODE_FLIPS}), dropped "
+                        f"{d['dropped']:.2%} (the forward's "
+                        f"{d['dropped_other']:.2%})" for d in dec))
     log(f"    end to end vs plain (bound {SERVE_BOUND} reported): last logits "
         f"{e2e['last_logits']:.2e} ({met(e2e['last_logits'])}; SDPA in the "
         f"kernel's place {floor['last_logits']:.2e}), cache max "
@@ -4197,8 +4383,10 @@ def main() -> int:
         "Command-R-35B at depth 4, 2 x 2048 and 16 steps; Whisper-large-v3 "
         "(full config) 8 x 1500 frames, a 128-token prompt and 64 steps; "
         "Llama-3.2-Vision-11B (full config) 4 x 2048 with 4100 vision "
-        "tokens and 32 steps; then flash_attention_fwd at the cells' "
-        "prefill shapes, causal and non-causal")
+        "tokens and 32 steps; DeepSeek-V3 at depth 4 (3 dense + 1 MoE "
+        "layer), 4 x 2048 and 32 steps; Arctic at depth 2, 4 x 2048 and "
+        "32 steps; then flash_attention_fwd at the cells' prefill shapes, "
+        "causal and non-causal, MLA's with v narrower than q and k")
     serve_lm, paths["serve_lm"] = phase_serve_lm(dev)
     flash_rows(dev, rows, 20, torch.Generator(device=dev).manual_seed(2029),
                SERVE_FLASH, clocks=False)

@@ -1,5 +1,6 @@
 """Config schema of the architectures (a copy of `repro.configs.base`'s
-`BlockDef` and `ModelConfig` with torch dtypes).
+`MoEConfig`, `MLAConfig`, `BlockDef` and `ModelConfig` with torch
+dtypes).
 
 A `ModelConfig` fully determines parameters and computation. Layer
 stacking is a repeating *pattern* of `BlockDef`s (mixer + FFN kind);
@@ -23,10 +24,32 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    n_shared: int = 0  # shared-expert multiplier (DeepSeek: 1)
+    capacity_factor: float = 1.25
+    router: str = "softmax"  # 'softmax' | 'sigmoid' (DeepSeek aux-free)
+    impl: str = "gather"  # 'gather'; 'ep_a2a' (expert-parallel
+    # all-to-all dispatch) is not ported yet (ROADMAP.md §A8.3)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockDef:
     """One layer's recipe: a mixer ('attn', 'swa', 'bidir', 'xattn',
-    'dec', 'rglru' are ported; 'mla', 'mlstm', 'slstm' are not yet) and
-    an FFN ('dense' is ported; 'moe', 'dense_moe', 'none' are not yet)."""
+    'dec', 'mla', 'rglru' are ported; 'mlstm', 'slstm' are not yet) and
+    an FFN ('dense', 'moe', 'dense_moe' are ported; 'none', the xLSTM
+    blocks' own, is not yet)."""
 
     mixer: str
     ffn: str = "dense"
@@ -58,9 +81,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     rec_width: int = 0  # RG-LRU width (0 -> d_model)
     rglru_c: float = 8.0
-    moe: Optional[object] = None  # MoE and MLA sub-configs: not ported
-    mla: Optional[object] = None  # yet (ROADMAP.md §A8)
-    first_dense_layers: int = 0
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    first_dense_layers: int = 0  # DeepSeek's leading dense layers
     enc_layers: int = 0
     enc_pattern: Tuple[BlockDef, ...] = (BlockDef("bidir", "dense"),)
     frontend: Optional[str] = None

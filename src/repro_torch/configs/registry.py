@@ -21,7 +21,8 @@ ARCH_IDS = (
     "llama-3.2-vision-11b",
 )
 PORTED = ("recurrentgemma-9b", "smollm-135m", "command-r-35b", "minicpm-2b",
-          "gemma-7b", "whisper-large-v3", "llama-3.2-vision-11b")
+          "gemma-7b", "deepseek-v3-671b", "arctic-480b", "whisper-large-v3",
+          "llama-3.2-vision-11b")
 
 
 def _module(arch: str):

@@ -7,7 +7,10 @@ Replaces the Pallas kernel `flash_attention_fwd`
 decoders' causal and sliding-window self-attention it serves, non-causal,
 the encoder's self-attention and cross-attention, where Sq != Skv and the
 key length is ragged (1,500 audio frames, 4,100 vision tokens): the
-kernel masks the ragged key tile, so nothing is padded. The reference
+kernel masks the ragged key tile, so nothing is padded. As the Pallas
+kernel's ``dhv`` (:116), the value width may differ from the key width:
+DeepSeek-V3's MLA prefill attends with q and k 192 wide (128 + 64 rope)
+and v 128 wide, at scale 192^-0.5; o is v's width. The reference
 sends those shapes to its XLA path (its Pallas kernel takes only
 multiples of 128, src/repro/kernels/flash_attention/ops.py:37). CUDA
 source:
@@ -15,9 +18,10 @@ source:
 only the visible key tiles and reading kv head h / (Hq / Hkv) without
 repeating heads, both writing the per-row log-sum-exp the backward reads:
 
-* bfloat16 (the trainer's path): the tensor cores. A CTA of two
-  warpgroups owns 128 q rows and streams 64-key K/V tiles through a
-  two-stage cp.async ring in 128-byte-swizzled shared memory;
+* bfloat16 (the trainer's and the servers' path): the tensor cores. A
+  CTA of two warpgroups owns 128 q rows and streams 64-key K/V tiles
+  (each at its own width) through a two-stage cp.async ring in
+  128-byte-swizzled shared memory;
   S = Q K^T and O += P V are `wgmma` (P from registers, rounded to
   bf16; V as an MN-major operand), the online softmax stays in
   registers. Bound by operations at the 989 TFLOP/s bf16 rate.
@@ -37,7 +41,7 @@ head against a cache, memory-bound.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -45,33 +49,38 @@ from repro_torch.kernels.flash_attention.xla_ref import pair_bwd, pair_fwd
 from repro_torch.kernels.wheel._common import (F32, I32, P, bind, launched,
                                                on_cuda, ptr, stream_of)
 
-_ARGS = [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, F32, I32, I32,
-         I32, P]
+_ARGS = [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, F32, I32,
+         I32, I32, P]
 _TYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# the (key width, value width) pairs the kernels are built for: square at
+# each of HEAD_DIMS, MLA's (DeepSeek-V3: 128 + 64 rope, 128) and its smoke
+# config's (16 + 8, 16)
+HEAD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None, q_offset: int = 0):
-    """(o (B, Hq, Sq, D) in q's dtype, lse (B, Hq, Sq) float32). On CUDA:
-    contiguous q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) of one dtype
-    (bfloat16, 16-byte aligned: the tensor-core kernel; float32: the
-    CUDA-core kernel), Hq % Hkv == 0, D in `HEAD_DIMS`."""
+    """(o (B, Hq, Sq, Dv) in q's dtype, lse (B, Hq, Sq) float32); scale
+    defaults to Dqk^-0.5. On CUDA: contiguous q (B, Hq, Sq, Dqk), k (B,
+    Hkv, Skv, Dqk) and v (B, Hkv, Skv, Dv) of one dtype (bfloat16,
+    16-byte aligned: the tensor-core kernel; float32: the CUDA-core
+    kernel), Hq % Hkv == 0, (Dqk, Dv) in `HEAD_PAIRS`."""
     if not on_cuda(q):
         return pair_fwd(q, k, v, causal, window, scale, q_offset)
     b, hq, sq, dh = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh \
-            or v.shape != k.shape:
+            or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     if hq % hkv:
         raise ValueError(f"flash_attention_fwd: Hq={hq} is not a multiple "
                          f"of Hkv={hkv}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+    if (dh, dv) not in HEAD_PAIRS:
+        raise ValueError(f"flash_attention_fwd: head dims (q/k {dh}, v "
+                         f"{dv}) not in {HEAD_PAIRS}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_fwd: window {window} <= 0")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -87,12 +96,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"aligned")
     if scale is None:
         scale = dh ** -0.5
-    o = torch.empty_like(q)
+    o = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     fn = bind("flash_attention", "rt_flash_attention_fwd", _ARGS)
     launched("flash_attention_fwd", fn(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
-        int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, dh, float(scale),
+        int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, dh, dv,
+        float(scale),
         int(causal), -1 if window is None else int(window), int(q_offset),
         stream_of(q.device)))
     return o, lse
@@ -100,9 +110,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, q_offset, use_kernel):
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, fwd):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        fwd = flash_attention_fwd if use_kernel else pair_fwd
         o, lse = fwd(q, k, v, causal, window, scale, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, window, scale, q_offset)
@@ -119,12 +128,17 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, q_offset: int = 0,
-                    use_kernel: bool = True) -> torch.Tensor:
-    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D), differentiable
-    in q, k and v. `use_kernel=False` takes the plain forward on every
-    device."""
+                    use_kernel: bool = True,
+                    fwd: Optional[Callable] = None) -> torch.Tensor:
+    """q (B, Hq, Sq, Dqk), k (B, Hkv, Skv, Dqk), v (B, Hkv, Skv, Dv) ->
+    (B, Hq, Sq, Dv), differentiable in q, k and v. `use_kernel=False`
+    takes the plain forward on every device; `fwd`, a function of
+    `flash_attention_fwd`'s signature, stands in for either (the
+    backward stays the plain pair schedule)."""
+    if fwd is None:
+        fwd = flash_attention_fwd if use_kernel else pair_fwd
     return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
-                                 use_kernel)
+                                 fwd)
 
 
 def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -4,8 +4,10 @@ leaves) and the port.
 The reference stacks each segment's periods on a leading axis (one
 ``lax.scan`` per segment); the port keeps one tensor per period. Both
 store projection weights as (in, out), so a leaf's values carry over
-as they are. bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) cross
-bit for bit.
+as they are, a MoE block's expert stacks (E, d, ff) / (E, ff, d) a
+period too. Each leaf keeps its dtype: bfloat16 leaves (numpy's
+``ml_dtypes.bfloat16``) cross bit for bit, and the MoE's float32
+``router_bias`` stays float32 in a bfloat16 model.
 """
 from __future__ import annotations
 
@@ -61,8 +63,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     """The port's parameters from the reference's tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, params)``, or CPU tensors;
     a block's leaves may be dicts or, as read from a checkpoint, lists).
-    Every leaf carries over, LayerNorm's bias ``b`` among them, and so do
-    an untied ``lm_head``, the encoder's ``enc_segments`` and
+    Every leaf carries over, LayerNorm's bias ``b``, MLA's ``q_norm`` /
+    ``kv_norm`` and the MoE's ``router``, ``router_bias``, expert
+    stacks, ``shared`` expert and Arctic's ``ffn_dense`` among them, and
+    so do an untied ``lm_head``, the encoder's ``enc_segments`` and
     ``enc_final_norm`` and a ``frontend_proj``."""
     conv = lambda a: _to_torch(
         a if isinstance(a, torch.Tensor) else np.asarray(a), device)
@@ -97,7 +101,8 @@ def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                    device="cpu") -> Dict[str, Any]:
     """The port's decode cache from the reference's (``{"pos": int32
     scalar, "segments": each period stacked on a leading axis}``, leaves
-    as numpy arrays; a cross-attention block's ``xk`` / ``xv`` too)."""
+    as numpy arrays; a cross-attention block's ``xk`` / ``xv`` and an
+    MLA block's ``ckv`` / ``krope`` too)."""
     conv = lambda a: _to_torch(np.asarray(a), device)
     return {"pos": conv(np.asarray(tree["pos"], np.int32)),
             "segments": _segments_from_jax(tree["segments"], cfg.segments(),

@@ -1,7 +1,7 @@
 """Model building blocks, functional PyTorch (params are plain dicts):
 the subset of `repro.models.layers` that the ported architectures run
 (SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B, Command-R-35B,
-Whisper-large-v3, Llama-3.2-Vision-11B).
+DeepSeek-V3, Arctic, Whisper-large-v3, Llama-3.2-Vision-11B).
 
   * norms: RMSNorm (with optional Gemma-style 1 + w), LayerNorm;
   * rotary embeddings;
@@ -13,7 +13,17 @@ Whisper-large-v3, Llama-3.2-Vision-11B).
     the `flash_attention` kernel, non-causal, over a sequence, and
     against its cached keys and values (`decode_attention`) for one new
     token; optionally tanh-gated;
+  * DeepSeek's multi-head latent attention (MLA): low-rank q and kv
+    compression with decoupled rope, over a sequence through the
+    `flash_attention` kernel with keys 192 and values 128 wide, and for
+    one new token by the absorption form over the compressed cache
+    ``{ckv, krope}`` (plain float32, as the reference's XLA);
   * gated or plain SiLU/GeLU MLPs;
+  * mixture of experts (the reference's 'gather' implementation): a
+    softmax or sigmoid (+ selection bias) router, top-k with ties to the
+    lower expert, static capacity with an overflow bin, the expert
+    SwiGLU in float32 a chunk of experts at a time, the gated combine and
+    an optional shared expert; `moe_load_stats`;
   * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel
     over a sequence, with its (h, conv history) state for decode.
 
@@ -23,8 +33,9 @@ Weights keep the reference's (in, out) layout, so a projection is
 output, as the reference's ``preferred_element_type`` + cast does);
 norms, softmax and gates in float32.
 
-Not ported yet (ROADMAP.md §A8): MLA, mixture of experts and the xLSTM
-mixers; each raises `NotImplementedError`.
+Not ported yet (ROADMAP.md §A8): the xLSTM mixers and the expert-
+parallel MoE dispatch (``impl="ep_a2a"``); each raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -138,7 +149,7 @@ def _proj(x, w, b=None):
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               cache: Optional[Params] = None,
-              cache_pos: Optional[torch.Tensor] = None):
+              cache_pos: Optional[torch.Tensor] = None, attend=None):
     """GQA self-attention over x (B, S, d) -> (y (B, S, d), kv).
 
     Without a cache: `flash_attention` over the sequence; kv is
@@ -150,6 +161,9 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     window's rolling buffer (L == window) holds at slot i the position
     ``pos - ((pos - i) mod L)``, valid iff >= 0; any other cache is
     masked by `decode_attention` at length ``pos + 1`` and the window.
+    `attend` (here and in `cross_attention` / `mla_attention`), a
+    function of `flash_attention_fwd`'s signature, stands in for the
+    kernel over a sequence.
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -164,7 +178,8 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         k = rope(k, positions, cfg.rope_theta)
     scale = cfg.attn_scale if cfg.attn_scale else dh ** -0.5
     if cache is None:
-        o = flash_attention(q, k, v, causal, window, scale, 0, cfg.use_kernels)
+        o = flash_attention(q, k, v, causal, window, scale, 0, cfg.use_kernels,
+                            attend)
         kv = {"k": k, "v": v}
     else:
         if s != 1:
@@ -205,7 +220,7 @@ def init_cross_attention(gen, cfg, dtype) -> Params:
 
 def cross_attention(p: Params, x: torch.Tensor,
                     memory: Optional[torch.Tensor], cfg, gated: bool = False,
-                    cache: Optional[Params] = None):
+                    cache: Optional[Params] = None, attend=None):
     """Attention of x (B, S, d) to a memory (B, M, d) -> (y (B, S, d),
     kv). kv is ``{"k", "v"}`` (B, Hkv, M, Dh): the memory's projections
     before the key norm (the reference's cache layout), made here when
@@ -232,11 +247,107 @@ def cross_attention(p: Params, x: torch.Tensor,
         o = decode_attention(q, k, cache["v"])
     else:
         o = flash_attention(q, k, cache["v"], False, None, None, 0,
-                            cfg.use_kernels)
+                            cfg.use_kernels, attend)
     y = matmul(o.transpose(1, 2).reshape(b, s, hq * dh), p["wo"])
     if gated:
         y = torch.tanh(p["gate_attn"].float()).to(y.dtype) * y
     return y, cache
+
+
+# -- DeepSeek MLA (multi-head latent attention) ----------------------------
+
+def init_mla(gen, cfg, dtype) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    s = d ** -0.5
+    qh = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": _normal(gen, (d, m.q_lora_rank), s, dtype),
+        "q_norm": init_norm(m.q_lora_rank, "rmsnorm", dtype, gen.device),
+        "wq_b": _normal(gen, (m.q_lora_rank, h * qh), m.q_lora_rank ** -0.5,
+                        dtype),
+        "wkv_a": _normal(gen, (d, m.kv_lora_rank + m.qk_rope_dim), s, dtype),
+        "kv_norm": init_norm(m.kv_lora_rank, "rmsnorm", dtype, gen.device),
+        "wkv_b": _normal(gen, (m.kv_lora_rank,
+                               h * (m.qk_nope_dim + m.v_head_dim)),
+                         m.kv_lora_rank ** -0.5, dtype),
+        "wo": _normal(gen, (h * m.v_head_dim, d), (h * m.v_head_dim) ** -0.5,
+                      dtype),
+    }
+
+
+def mla_cache_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                        ckv: torch.Tensor, krope: torch.Tensor,
+                        wkv_b: torch.Tensor, valid: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """The absorption form over a compressed cache, in float32: q_nope
+    (B, H, S, nope) and q_rope (B, H, S, rope) against ckv (B, L, r) and
+    krope (B, L, rope) where `valid` (L,) is True; wkv_b (r, H, nope + v)
+    folds W_uk into q and W_uv into the output read. -> o (B, H, S, v)
+    float32."""
+    nope = q_nope.shape[-1]
+    w = wkv_b.float()
+    kc = ckv.float()
+    q_c = torch.einsum("bhsn,rhn->bhsr", q_nope.float(), w[..., :nope])
+    sc = torch.einsum("bhsr,blr->bhsl", q_c, kc)
+    sc = sc + torch.einsum("bhsr,blr->bhsl", q_rope.float(), krope.float())
+    sc = torch.where(valid, sc * scale, -1e30)
+    o_c = torch.einsum("bhsl,blr->bhsr", torch.softmax(sc, dim=-1), kc)
+    return torch.einsum("bhsr,rhn->bhsn", o_c, w[..., nope:])
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  cache: Optional[Params] = None,
+                  cache_pos: Optional[torch.Tensor] = None, attend=None):
+    """MLA with decoupled rope over x (B, S, d) -> (y (B, S, d), kv).
+
+    Without a cache: causal `flash_attention` over the sequence, q and k
+    ``nope + rope`` wide (k's rope part, one head's, broadcast to every
+    head), v ``v_head_dim`` wide, scale (nope + rope)^-0.5; kv is
+    ``{"ckv": (B, S, r), "krope": (B, S, rope)}``, the normed latent and
+    the rotated rope key (what a prefill cache keeps). With a cache of
+    that layout at length L and the 0-d position `cache_pos` of the one
+    new token (S = 1): its latent and rope key are written at slot
+    `cache_pos` in place, and it attends over slots <= cache_pos by
+    `mla_cache_attention`; kv is that same dict."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rdim, vdim, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                           m.kv_lora_rank)
+    q = matmul(rms_norm(matmul(x, p["wq_a"]), p["q_norm"]["w"]), p["wq_b"])
+    q = q.reshape(b, s, h, nope + rdim).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
+                                         cfg.rope_theta)
+    kv_a = matmul(x, p["wkv_a"])  # (B, S, r + rope)
+    ckv = rms_norm(kv_a[..., :r], p["kv_norm"]["w"])
+    k_rope = rope(kv_a[..., r:], positions, cfg.rope_theta)  # (B, S, rope)
+    scale = (nope + rdim) ** -0.5
+    wkv_b = p["wkv_b"].reshape(r, h, nope + vdim)
+    if cache is None:
+        heads = lambda w, n: matmul(ckv, w.reshape(r, h * n)).reshape(
+            b, s, h, n).transpose(1, 2)
+        k_nope = heads(wkv_b[..., :nope], nope)
+        v = heads(wkv_b[..., nope:], vdim)
+        kk = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, rdim)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        o = flash_attention(qq, kk, v, True, None, scale, 0, cfg.use_kernels,
+                            attend)
+        kv = {"ckv": ckv, "krope": k_rope}
+    else:
+        if s != 1:
+            raise ValueError(f"mla_attention: a decode step takes one token, "
+                             f"got {s}")
+        slot = cache_pos.reshape(1).long()
+        cache["ckv"].index_copy_(1, slot, ckv)
+        cache["krope"].index_copy_(1, slot, k_rope)
+        valid = torch.arange(cache["ckv"].shape[1],
+                             device=x.device) <= cache_pos
+        o = mla_cache_attention(q_nope, q_rope, cache["ckv"], cache["krope"],
+                                wkv_b, valid, scale).to(x.dtype)
+        kv = cache
+    y = o.transpose(1, 2).reshape(b, s, h * vdim)
+    return matmul(y, p["wo"]), kv
 
 
 # -- MLP -------------------------------------------------------------------
@@ -264,6 +375,137 @@ def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         up = _act(up, act)
     return matmul(up, p["w_down"])
+
+
+# -- mixture of experts (static capacity, scatter dispatch) ---------------
+
+# the float32 copies of one chunk of experts' three weight matrices stay
+# under this many bytes (a DeepSeek-V3 expert is 176 MB, an Arctic one
+# 418 MB; a whole stack would be 15-18 GB a matrix)
+EXPERT_CHUNK_BYTES = 1 << 30
+
+
+def init_moe(gen, cfg, dtype) -> Params:
+    mo = cfg.moe
+    d, e, ff = cfg.d_model, mo.n_experts, mo.d_ff
+
+    def stack(rows: int, cols: int, scale: float) -> torch.Tensor:
+        # drawn one expert at a time: a whole stack drawn in float32
+        # would be another copy of it
+        w = torch.empty((e, rows, cols), dtype=dtype, device=gen.device)
+        for i in range(e):
+            w[i] = _normal(gen, (rows, cols), scale, dtype)
+        return w
+
+    p = {"router": _normal(gen, (d, e), d ** -0.5, dtype),
+         # the aux-free balancing bias: float32 in any model dtype
+         "router_bias": torch.zeros((e,), dtype=F32, device=gen.device),
+         "w_gate": stack(d, ff, d ** -0.5),
+         "w_up": stack(d, ff, d ** -0.5),
+         "w_down": stack(ff, d, ff ** -0.5)}
+    if mo.n_shared:
+        p["shared"] = init_mlp(gen, d, mo.d_ff * mo.n_shared, True, dtype)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row of x, the
+    largest first and ties to the lower index (`lax.top_k`'s order,
+    which `torch.topk` does not promise): a stable descending sort."""
+    val, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
+
+
+def _router_scores(p: Params, xt: torch.Tensor, cfg) -> torch.Tensor:
+    """float32 router scores (T, E): sigmoid or softmax of the logits,
+    which round to the activation dtype first (the reference's
+    `matmul`)."""
+    logits = matmul(xt, p["router"]).float()
+    if cfg.moe.router == "sigmoid":
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg):
+    """The routing of tokens xt (T, d): (experts (T, k) int64, gate
+    weights (T, k) float32, keep (T * k,) bool, buffer rows (T * k,)
+    int64, capacity). The sigmoid router adds ``router_bias`` to pick
+    the experts only and renormalises the picked scores; the softmax
+    router picks by its scores. Each expert takes at most ``cap =
+    int(T k / E * capacity_factor) + 1`` (token, slot) pairs, in
+    token-major (t, slot) order; a pair past it is dropped (keep False)
+    and its buffer row is the overflow bin E * cap."""
+    mo = cfg.moe
+    e, k = mo.n_experts, mo.top_k
+    scores = _router_scores(p, xt, cfg)
+    sel = scores + p["router_bias"][None, :] if mo.router == "sigmoid" \
+        else scores
+    _, tope = top_k(sel, k)
+    gatew = torch.gather(scores, -1, tope)  # the weights without the bias
+    if mo.router == "sigmoid":
+        gatew = gatew / torch.clamp(gatew.sum(-1, keepdim=True), min=1e-9)
+    cap = int(xt.shape[0] * k / e * mo.capacity_factor) + 1
+    flat_e = tope.reshape(-1)
+    onehot = F.one_hot(flat_e, e).to(torch.int32)  # (T * k, E)
+    before = torch.cumsum(onehot, 0, dtype=torch.int32) - onehot
+    slot = torch.gather(before, 1, flat_e[:, None])[:, 0]
+    keep = slot < cap
+    buf_idx = torch.where(keep, flat_e * cap + slot, e * cap)
+    return tope, gatew, keep, buf_idx, cap
+
+
+def moe(p: Params, x: torch.Tensor, cfg,
+        routing: Optional[dict] = None) -> torch.Tensor:
+    """Top-k MoE over x (B, S, d) with static capacity and scatter /
+    gather dispatch (`moe_route`): the kept (token, slot) copies scatter
+    into an (E, cap, d) buffer, each expert's SwiGLU runs on its rows in
+    float32 (bf16 operands widened a chunk of experts at a time, never a
+    whole stack: `EXPERT_CHUNK_BYTES`), the results cast to x's dtype
+    gather back, weighted by their gates and summed per token; a dropped
+    pair adds nothing (the residual passes through). Plus the shared
+    expert's MLP when the config has one. With `routing`, a dict, the
+    experts each token picked ("experts", (B, S, k)) and which of its
+    pairs were kept ("keep", (B, S, k)) are written into it."""
+    mo = cfg.moe
+    if mo.impl != "gather":
+        raise NotImplementedError(f"MoE impl {mo.impl!r} is {NOT_PORTED}")
+    b, s, d = x.shape
+    t, e, k = b * s, mo.n_experts, mo.top_k
+    xt = x.reshape(t, d)
+    tope, gatew, keep, buf_idx, cap = moe_route(p, xt, cfg)
+    if routing is not None:
+        routing.update(experts=tope.view(b, s, k), keep=keep.view(b, s, k))
+    tok = torch.arange(t * k, device=x.device) // k
+    # the dropped pairs all land in the overflow bin, which is discarded
+    buf = x.new_zeros((e * cap + 1, d)).index_copy_(0, buf_idx, xt[tok])
+    xb = buf[:-1].view(e, cap, d)
+    out = x.new_empty((e, cap, d))
+    per = 4 * sum(p[n][0].numel() for n in ("w_gate", "w_up", "w_down"))
+    step = max(1, EXPERT_CHUNK_BYTES // per)
+    for e0 in range(0, e, step):
+        c = slice(e0, e0 + step)
+        xe = xb[c].float()
+        up = torch.bmm(xe, p["w_up"][c].float())
+        h = F.silu(torch.bmm(xe, p["w_gate"][c].float())) * up
+        out[c] = torch.bmm(h, p["w_down"][c].float()).to(x.dtype)
+    y = out.view(e * cap, d)[torch.clamp(buf_idx, max=e * cap - 1)]
+    y = torch.where(keep[:, None], y, 0.0)
+    y = y * gatew.reshape(-1)[:, None].to(x.dtype)
+    y = y.reshape(t, k, d).sum(1)
+    if mo.n_shared:
+        y = y + mlp(p["shared"], xt, "silu")
+    return y.reshape(b, s, d)
+
+
+def moe_load_stats(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Per-expert selection counts (E,) int32 (for the aux-free bias
+    controller): top-k of scores + ``router_bias`` for either router, as
+    the reference's."""
+    xt = x.reshape(-1, x.shape[-1])
+    sel = _router_scores(p, xt, cfg) + p["router_bias"][None, :]
+    _, tope = top_k(sel, cfg.moe.top_k)
+    return torch.bincount(tope.reshape(-1), minlength=cfg.moe.n_experts
+                          ).to(torch.int32)
 
 
 # -- RG-LRU recurrent block (Griffin / RecurrentGemma) -------------------

@@ -15,7 +15,9 @@ the reference's tree onto this one. A decode cache has the same layout:
 ``{"pos": 0-d int32 on the device, "segments": [[(block cache, ...) per
 period] per segment]}``, mapped by `convert.cache_from_jax` /
 `cache_to_numpy`; a cross-attention block's cache holds the memory's
-keys and values, ``"xk"`` / ``"xv"`` (B, Hkv, M, Dh), from the prefill.
+keys and values, ``"xk"`` / ``"xv"`` (B, Hkv, M, Dh), from the prefill,
+and an MLA block's the compressed latent and rope key, ``"ckv"`` (B, L,
+kv_lora_rank) and ``"krope"`` (B, L, qk_rope_dim), no head axis.
 
 Encoder-decoder (Whisper) and cross-attention (Llama-3.2-Vision) models
 take frontend-stub embeddings (B, M, frontend_dim): the encoder's
@@ -30,11 +32,12 @@ Entry points:
   decode_step                            -> (next-token logits, cache)
   make_cache, lm_loss
 
-Ported: blocks whose mixers are 'attn', 'swa', 'bidir', 'xattn', 'dec'
-or 'rglru' with a 'dense' FFN and RMSNorm or LayerNorm, encoders,
-frontend stubs, untied heads and sinusoidal positions. MLA, MoE FFNs,
-the xLSTM mixers, MTP and rematerialisation raise `NotImplementedError`
-(ROADMAP.md §A8).
+Ported: blocks whose mixers are 'attn', 'swa', 'bidir', 'xattn', 'dec',
+'mla' (DeepSeek) or 'rglru' with a 'dense', 'moe' or 'dense_moe'
+(Arctic: the MLP and the MoE in parallel) FFN, DeepSeek's leading dense
+layers, RMSNorm or LayerNorm, encoders, frontend stubs, untied heads and
+sinusoidal positions. The xLSTM mixers (and their FFN-less blocks), MTP
+and rematerialisation raise `NotImplementedError` (ROADMAP.md §A8).
 """
 from __future__ import annotations
 
@@ -48,13 +51,14 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 F32 = torch.float32
-MIXERS = ("attn", "swa", "bidir", "xattn", "dec", "rglru")
+MIXERS = ("attn", "swa", "bidir", "xattn", "dec", "mla", "rglru")
+FFNS = ("dense", "moe", "dense_moe")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for pat, _ in cfg.segments() + cfg.enc_segments():
         for bd in pat:
-            if bd.mixer not in MIXERS or bd.ffn != "dense":
+            if bd.mixer not in MIXERS or bd.ffn not in FFNS:
                 raise NotImplementedError(
                     f"block {bd} is {L.NOT_PORTED}")
     if cfg.norm not in L.NORMS:
@@ -72,6 +76,8 @@ def _init_block(gen, bd: BlockDef, cfg: ModelConfig, dtype) -> Params:
     p: Params = {"norm1": norm()}
     if bd.mixer in ("attn", "swa", "bidir"):
         p["mixer"] = L.init_attention(gen, cfg, dtype)
+    elif bd.mixer == "mla":
+        p["mixer"] = L.init_mla(gen, cfg, dtype)
     elif bd.mixer == "xattn":
         p["mixer"] = L.init_cross_attention(gen, cfg, dtype)
     elif bd.mixer == "dec":
@@ -81,7 +87,14 @@ def _init_block(gen, bd: BlockDef, cfg: ModelConfig, dtype) -> Params:
     else:
         p["mixer"] = L.init_rglru_block(gen, cfg, dtype)
     p["norm2"] = norm()
-    p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype)
+    dense = lambda: L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                               dtype)
+    if bd.ffn == "dense":
+        p["ffn"] = dense()
+    else:
+        p["ffn"] = L.init_moe(gen, cfg, dtype)
+        if bd.ffn == "dense_moe":
+            p["ffn_dense"] = dense()
     return p
 
 
@@ -127,6 +140,10 @@ def _block_cache(bd: BlockDef, cfg: ModelConfig, b: int, cache_len: int,
                 "xk": z(b, hkv, mt, dh), "xv": z(b, hkv, mt, dh)}
     if bd.mixer == "xattn":
         return {"xk": z(b, hkv, mt, dh), "xv": z(b, hkv, mt, dh)}
+    if bd.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": z(b, cache_len, m.kv_lora_rank),
+                "krope": z(b, cache_len, m.qk_rope_dim)}
     if bd.mixer == "rglru":
         w = cfg.rec_width or cfg.d_model
         return {"h": z(b, w), "conv": z(b, 3, w)}
@@ -146,6 +163,22 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
                          for pat, n in cfg.segments()]}
 
 
+def _padded(kv: Params, axis: int, cache_len: int) -> Params:
+    """Each tensor of `kv` zero-padded along its sequence `axis` to
+    `cache_len` positions."""
+    out = {}
+    for n, t in kv.items():
+        s = t.shape[axis]
+        if s > cache_len:
+            raise ValueError(f"prefill of {s} tokens into a cache of "
+                             f"{cache_len}")
+        shape = list(t.shape)
+        shape[axis] = cache_len
+        out[n] = t.new_zeros(shape)
+        out[n].narrow(axis, 0, s).copy_(t)
+    return out
+
+
 def _prefill_kv(kv: Params, window: Optional[int], cache_len: int) -> Params:
     """The decode cache of one attention block from the prefill's rotated
     k and v (B, Hkv, S, Dh): with a window, the last ``w = min(window,
@@ -159,52 +192,85 @@ def _prefill_kv(kv: Params, window: Optional[int], cache_len: int) -> Params:
         idx = torch.arange(lo, s, device=k.device) % w
         return {n: t.new_zeros((b, hkv, w, dh)).index_copy_(2, idx, t[:, :, lo:])
                 for n, t in kv.items()}
-    if s > cache_len:
-        raise ValueError(f"prefill of {s} tokens into a cache of {cache_len}")
-    out = {}
-    for n, t in kv.items():
-        out[n] = t.new_zeros((b, hkv, cache_len, dh))
-        out[n][:, :, :s] = t
-    return out
+    return _padded(kv, 2, cache_len)
 
 
 # -- blocks and segments -------------------------------------------------
+
+def _mixer(bd: BlockDef, p: Params, h: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor, cache: Optional[Params] = None,
+           cache_pos: Optional[torch.Tensor] = None,
+           prefill_len: Optional[int] = None, attend=None):
+    """(y, new_cache) of a self-attention mixer ('attn', 'swa', 'bidir',
+    the self part of 'dec') or an MLA one on the block's normed input h;
+    new_cache and `attend` as `_apply_block`'s (new_cache None when
+    neither a cache nor `prefill_len` is given)."""
+    if bd.mixer == "mla":
+        y, kv = L.mla_attention(p["mixer"], h, cfg, positions, cache,
+                                cache_pos, attend)
+        if cache is None:  # the latent and rope key, padded
+            kv = None if prefill_len is None else _padded(kv, 1, prefill_len)
+        return y, kv
+    window = cfg.window if bd.mixer == "swa" else None
+    sc = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+    y, kv = L.attention(p["mixer"], h, cfg, positions, bd.mixer != "bidir",
+                        window, sc, cache_pos, attend)
+    if cache is None:
+        # the keys as attention made them (after qk_norm, as a decode step
+        # writes them; the reference's 'dec' prefill skips qk_norm:
+        # ROADMAP.md §C5)
+        kv = None if prefill_len is None else _prefill_kv(kv, window,
+                                                           prefill_len)
+    return y, kv
+
+
+def _ffn(bd: BlockDef, p: Params, h: torch.Tensor, cfg: ModelConfig,
+         routing: Optional[dict] = None):
+    """The FFN's output on the block's normed input h: the MLP, the MoE,
+    or ('dense_moe', Arctic) the two in parallel, summed; a MoE writes
+    its routing into `routing` (`layers.moe`)."""
+    if bd.ffn == "dense":
+        return L.mlp(p["ffn"], h, cfg.activation)
+    y = L.moe(p["ffn"], h, cfg, routing)
+    if bd.ffn == "dense_moe":
+        y = L.mlp(p["ffn_dense"], h, cfg.activation) + y
+    return y
+
 
 def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, cache: Optional[Params] = None,
                  cache_pos: Optional[torch.Tensor] = None,
                  prefill_len: Optional[int] = None,
-                 memory: Optional[torch.Tensor] = None):
+                 memory: Optional[torch.Tensor] = None, attend=None,
+                 parts: Optional[dict] = None):
     """(x, new_cache). With `prefill_len` (and no cache) builds the
     block's fresh cache; with a cache, decodes one token against it (an
-    attention cache is updated in place). 'xattn' and 'dec' blocks attend
-    to `memory` (B, M, d) when they have no cache."""
+    attention or MLA cache is updated in place). 'xattn' and 'dec'
+    blocks attend to `memory` (B, M, d) when they have no cache.
+    `attend`, a function of `flash_attention_fwd`'s signature, stands in
+    for the kernel in the block's attention over a sequence. With
+    `parts`, a dict, the block writes into it the mixer's output
+    ("mixer", the last one added before the FFN), the FFN's normed input
+    ("ffn_in") and output ("ffn"), and a MoE's routing ("experts",
+    "keep")."""
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     new_cache = None
-    if bd.mixer in ("attn", "swa", "bidir", "dec"):
-        window = cfg.window if bd.mixer == "swa" else None
-        sc = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-        y, kv = L.attention(p["mixer"], h, cfg, positions,
-                            bd.mixer != "bidir", window, sc, cache_pos)
-        if cache is not None:
-            new_cache = kv
-        elif prefill_len is not None:
-            # the keys as attention made them (after qk_norm, as a decode
-            # step writes them; the reference's 'dec' prefill skips
-            # qk_norm: ROADMAP.md §C5)
-            new_cache = _prefill_kv(kv, window, prefill_len)
-        del kv
+    if bd.mixer in ("attn", "swa", "bidir", "dec", "mla"):
+        y, new_cache = _mixer(bd, p, h, cfg, positions, cache, cache_pos,
+                              prefill_len, attend)
         if bd.mixer == "dec":  # then cross-attention, its own residual
             x = x + y
             h = L.apply_norm(x, p["norm_cross"], cfg.norm)
             xc = None if cache is None else {"k": cache["xk"],
                                              "v": cache["xv"]}
-            y, xc = L.cross_attention(p["cross"], h, memory, cfg, False, xc)
+            y, xc = L.cross_attention(p["cross"], h, memory, cfg, False, xc,
+                                      attend)
             if new_cache is not None:
                 new_cache.update(xk=xc["k"], xv=xc["v"])
     elif bd.mixer == "xattn":
         xc = None if cache is None else {"k": cache["xk"], "v": cache["xv"]}
-        y, xc = L.cross_attention(p["mixer"], h, memory, cfg, True, xc)
+        y, xc = L.cross_attention(p["mixer"], h, memory, cfg, True, xc,
+                                  attend)
         if cache is not None or prefill_len is not None:
             new_cache = {"xk": xc["k"], "xv": xc["v"]}
     elif bd.mixer == "rglru":
@@ -214,7 +280,10 @@ def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(f"mixer {bd.mixer!r} is {L.NOT_PORTED}")
     x = x + y
     h = L.apply_norm(x, p["norm2"], cfg.norm)
-    return x + L.mlp(p["ffn"], h, cfg.activation), new_cache
+    f = _ffn(bd, p, h, cfg, parts)
+    if parts is not None:
+        parts.update(mixer=y, ffn_in=h, ffn=f)
+    return x + f, new_cache
 
 
 def _run_segments(params_segs: List, segs, x: torch.Tensor,

@@ -939,3 +939,90 @@ def test_training_kernel_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # bf16 rows are copied 16 bytes at once
         b = lambda *s: f(s[0] * s[1] * s[2] * s[3] + 1).bfloat16()[1:].view(s)
         flash_attention_fwd(b(1, 2, 8, 64), b(1, 1, 8, 64), b(1, 1, 8, 64))
+
+
+# (B, Hq, Hkv, Sq, Skv, Dqk, Dv, causal, window, q_offset): v narrower
+# than q and k, MLA's full widths (DeepSeek-V3) and its smoke config's
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dk,dv,causal,window,q_offset", [
+    (1, 4, 4, 300, 300, 192, 128, True, None, 0),   # S not a tile multiple
+    (2, 2, 2, 130, 130, 192, 128, False, None, 0),  # bidirectional
+    (1, 4, 2, 100, 200, 192, 128, True, 24, 100),   # GQA, band, q_offset
+    (2, 4, 4, 96, 96, 24, 16, True, None, 0),       # widths padded to 64
+    (1, 2, 1, 70, 150, 24, 16, False, None, 0)])    # MQA, ragged keys
+def test_flash_attention_fwd_value_width_matches_plain(cuda, dtype, b, hq,
+                                                       hkv, sq, skv, dk, dv,
+                                                       causal, window,
+                                                       q_offset):
+    """The kernels at a value width unlike the key width (o as wide as
+    v, scale Dqk^-0.5) against `pair_fwd` and `mha_reference`, within
+    the square forms' tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + dk)
+    q = torch.randn((b, hq, sq, dk), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, skv, dk), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, skv, dv), generator=gen, device=cuda).to(dtype)
+    want_o, want_lse = pair_fwd(q, k, v, causal, window, None, q_offset)
+    before = LAUNCHES["flash_attention_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, causal, window, None, q_offset)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before + 1
+    assert o.shape == (b, hq, sq, dv)
+    _close(o, want_o, FLASH_TOL[dtype], FLASH_TOL[dtype])
+    _close(lse, want_lse, 1e-4, 1e-5)
+    _close(o.float(), mha_reference(q.float(), k.float(), v.float(), causal,
+                                    window, None, q_offset),
+           FLASH_TOL[dtype], FLASH_TOL[dtype])
+
+
+def test_flash_attention_fwd_rejects_unbuilt_width_pairs(cuda):
+    f = lambda *s: torch.zeros(s, device=cuda)
+    with pytest.raises(ValueError):  # (64, 32) is not built
+        flash_attention_fwd(f(1, 2, 8, 64), f(1, 2, 8, 64), f(1, 2, 8, 32))
+    with pytest.raises(ValueError):  # v's keys differ from k's
+        flash_attention_fwd(f(1, 2, 8, 192), f(1, 2, 8, 192),
+                            f(1, 2, 9, 128))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "arctic-480b"])
+def test_moe_smoke_models_kernels_match_plain(cuda, arch):
+    """DeepSeek's and Arctic's smoke configs (float32) on the card: a
+    prefill and 3 decode steps with the kernels against the same with
+    their plain versions (DeepSeek's MLA prefill through the (24, 16)
+    kernel, once a layer); logits and cache within 1e-4 relative."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves
+
+    cfg = get_smoke_config(arch)
+    if cfg.hd not in (16, 32, 64, 128, 256) and cfg.mla is None:
+        cfg = dataclasses.replace(cfg, head_dim=16)  # Arctic smoke's is 8
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    params = M.init_params(cfg, 3, cuda)
+    for t in leaves(params):  # the zero router_bias: drawn
+        if not t.any():
+            t.normal_(0.0, 0.5, generator=torch.Generator(device=cuda)
+                      .manual_seed(t.numel()))
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    runs = []
+    for c in (cfg, plain):
+        reset_launches()
+        lg, cache = M.forward(params, c, tok, mode="prefill", cache_len=44)
+        outs = [lg[:, -1]]
+        nxt = lg[:, -1:].argmax(-1)
+        for _ in range(3):
+            lg, cache = M.decode_step(params, c, nxt, cache)
+            outs.append(lg[:, 0])
+            nxt = lg[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        runs.append((outs, leaves(cache["segments"]),
+                     launch_counts()["flash_attention_fwd"]))
+    (got, got_c, n), (want, want_c, n_plain) = runs
+    assert n == cfg.num_layers and n_plain == 0
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    for a, b in zip(got, want):
+        assert rel(a, b) <= 1e-4
+    for a, b in zip(got_c, want_c):
+        assert rel(a, b) <= 1e-4
