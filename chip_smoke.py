@@ -171,7 +171,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      to 1) 4 x 2,048 with 4,100 vision embeddings a row, 32 steps;
      DeepSeek-V3 at full width, depth 4 (its 3 dense MLA layers and 1
      MoE layer), and Arctic at full width, depth 2 ('dense_moe'), each 4
-     x 2,048 and 32 steps. Held at 2e-2 relative (max |a - b| / max
+     x 2,048 and 32 steps; xLSTM-350M (full config: 21 mLSTM and 3
+     sLSTM blocks) 4 x 2,048 and 32 steps (the chunkwise mLSTM and the
+     sLSTM scan at prefill, their recurrent forms at decode; the path
+     launches no kernel, so the checks against the plain versions are
+     skipped and said so, and one layer's state update is timed in the
+     decode attention's place). Held at 2e-2 relative (max |a - b| / max
      |b|), block by block in lockstep: each block, an encoder's too,
      with its kernels against its plain version on the same input and
      memory (output and cache tensors), and each decoder block's decode
@@ -200,13 +205,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      (4, 128 / 128, 2,048, q and k 192, v 128) and Arctic's (4, 56 / 8,
      2,048, 128), causal) against the plain pair schedule, timed beside
      SDPA;
+ 20. xLSTM-350M's training and the mLSTM's forms: one mLSTM block at
+     full width (d 1,024, 4 heads of 512) in float32 over 4 x 2,048, the
+     chunkwise form within 1e-4 of the quadratic form at every position
+     and within 1e-3 of the recurrent form stepped token by token
+     (outputs and final (C, n, m)); `run_plain` at full depth (0.50 B
+     parameters), 4 x 2,048, 2 steps (finite, the first loss within 0.5
+     of ln V + 1/2, a random tied head's), then 1 step with
+     ``remat="block"``: the same loss and grad norm, a lower peak;
+     one mLSTM and one sLSTM block forward and backward at those shapes
+     (the step's breakdown); SmolLM-135M (full config) at 4 x 2,048, one
+     step under each of ``remat`` "none", "block" and "block_save_flash":
+     the same loss and grad norm, `flash_attention_fwd` launched 30, 60
+     and 30 times (the recompute; the kept outputs), the peak of each;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
      phase 9's run, phase 10's run, phases 12-13 armed, phase 12's last
      schedule, phase 15's batched engines, phase 16, phase 17's ranks,
      summed, phase 18's kernels-on drills, phase 18's two trainer runs,
-     phase 19's prefills and decode steps):
+     phase 19's prefills and decode steps, phase 20's xLSTM runs (no
+     kernel) and its SmolLM remat steps):
      every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
@@ -296,8 +315,13 @@ PATH_KERNELS = {
     # phase 18: the elastic drills with kernels; run_plain with resume
     "control": {"stage_rows", "threshold_step", "due_dedup", "descent_tail"},
     "train_smollm_resume": {"flash_attention_fwd"},
-    # phase 19: the eight serving cells' prefills and decode steps
+    # phase 19: the nine serving cells' prefills and decode steps (the
+    # xLSTM cell's launch none)
     "serve_lm": {"flash_attention_fwd", "rglru_scan"},
+    # phase 20: xLSTM-350M's run_plain runs (no kernel on their path); the
+    # SmolLM-135M steps under each remat
+    "train_xlstm": set(),
+    "remat": {"flash_attention_fwd"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -3490,7 +3514,11 @@ SERVE_CELLS = (("gemma-7b", None, 4, 2048, 64, 0),
                # MoE layer is 22.6 GB of bf16 weights); 15.1 B params
                ("deepseek-v3-671b", 4, 4, 2048, 32, 0),
                # 2 'dense_moe' layers of 35 (27.2 GB each); 27.7 B params
-               ("arctic-480b", 2, 4, 2048, 32, 0))
+               ("arctic-480b", 2, 4, 2048, 32, 0),
+               # full depth (24 blocks, 0.50 B params): the chunkwise mLSTM
+               # and the sLSTM scan at prefill, their recurrent forms at
+               # decode; no kernel on this path
+               ("xlstm-350m", None, 4, 2048, 32, 0))
 # flash_attention_fwd at the serving cells' prefill shapes: (B, Hq, Hkv,
 # Sq, D, window) causal with Skv = Sq, or (B, Hq, Hkv, Sq, D, window, Skv,
 # causal); D is an int, or (Dqk, Dv) for a value width unlike the key's
@@ -3779,6 +3807,121 @@ def end_to_end(last, cache_leaves, rec, want_last, want_leaves, want_rec):
                                      last_pos, SERVE_BOUND)}
 
 
+def plain_checks(params, cfg, plain_cfg, tokens, cache_len: int, fe, last,
+                 prefill_leaves, batch: int, arch: str):
+    """`serve_cell`'s checks of a kernels-on prefill (its last-position
+    logits `last` and cache tensors `prefill_leaves`) against the plain
+    versions: the lockstep of every block (asserted), end to end (the
+    first greedy tokens asserted) and SDPA in the kernel's place.
+    Returns (lockstep errors, MoE records, end to end, SDPA's end to
+    end, whether a re-run's logits equal the main path's)."""
+    import torch
+
+    with torch.no_grad():
+        p_rec, p_last, p_cache = recorded_prefill(params, plain_cfg, tokens,
+                                                  cache_len, fe)
+        lock_p, moe_p = lockstep_prefill(cfg, p_rec)
+        p_leaves = _leaves(p_cache["segments"])
+        del p_cache
+        k_rec, k_last, k_cache = recorded_prefill(params, cfg, tokens,
+                                                  cache_len, fe)
+        rerun_equal = bool(torch.equal(k_last, last))
+        del k_cache
+        e2e = end_to_end(last, prefill_leaves, k_rec, p_last, p_leaves,
+                         p_rec)
+        del k_rec
+        s_rec, s_last, s_cache = recorded_prefill(params, cfg, tokens,
+                                                  cache_len, fe,
+                                                  sdpa_attention)
+        floor = end_to_end(s_last, _leaves(s_cache["segments"]), s_rec,
+                           p_last, p_leaves, p_rec)
+        del s_rec, s_cache, p_rec, p_leaves
+    assert e2e["first_tokens_equal"] == batch, (
+        f"{arch}: the first greedy token of the kernels-on prefill differs "
+        f"from the plain one's in {batch - e2e['first_tokens_equal']} rows; "
+        f"first block parting (index, error): {e2e['parting']}")
+    assert max(lock_p) <= SERVE_BOUND, (
+        f"{arch}: a block with kernels differs from its plain version on "
+        f"the same input by {max(lock_p):.3g} (bound {SERVE_BOUND}) at "
+        f"block {lock_p.index(max(lock_p))}; MoE blocks: {moe_p}")
+    for i, r in moe_p.items():
+        assert r["topk_set_differs"] <= MOE_FLIP_RATIO * r["sdpa"][
+            "topk_set_differs"], (
+            f"{arch}: MoE block {i}'s tokens pick another top-k set with the "
+            f"kernels than with their plain versions in "
+            f"{r['topk_set_differs']:.4%} of them, more than {MOE_FLIP_RATIO}"
+            f" x the {r['sdpa']['topk_set_differs']:.4%} with SDPA in the "
+            f"kernel's place: {r}")
+
+    return lock_p, moe_p, e2e, floor, rerun_equal
+
+
+def decode_attention_ms(dev, cfg, params, attn, batch: int, cache_len: int,
+                        gen):
+    """(mixer, slots, device ms) of the first attention block of `attn`
+    (`attention_blocks`): one decode step's attention over its full
+    cache (MLA's absorption form over the compressed cache), on a random
+    query from `gen`."""
+    import torch
+    from repro_torch.kernels.flash_attention import (cache_attention,
+                                                     decode_attention)
+    from repro_torch.models.layers import mla_cache_attention
+
+    mixer, blk = attn[0]
+    ln = cache_len
+    if mixer == "mla":  # the absorption form over the compressed cache
+        m = cfg.mla
+        q = torch.randn((batch, cfg.num_heads, 1,
+                         m.qk_nope_dim + m.qk_rope_dim), generator=gen,
+                        device=dev).to(cfg.torch_dtype)
+        wkv_b = [p["mixer"]["wkv_b"] for bd, p in model_blocks(
+            cfg, params["segments"]) if bd.mixer == "mla"][0].reshape(
+            m.kv_lora_rank, cfg.num_heads, m.qk_nope_dim + m.v_head_dim)
+        valid = torch.ones(ln, dtype=torch.bool, device=dev)
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+        attend = lambda: mla_cache_attention(
+            q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], blk["ckv"],
+            blk["krope"], wkv_b, valid, scale)
+    else:
+        kc, vc = blk["k"], blk["v"]
+        ln = kc.shape[2]
+        q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
+                        device=dev).to(cfg.torch_dtype)
+        scale = cfg.attn_scale or cfg.hd ** -0.5
+        if mixer == "swa" and ln == cfg.window:  # the rolling buffer
+            valid = torch.ones((batch, ln), dtype=torch.bool, device=dev)
+            attend = lambda: cache_attention(q, kc, vc, valid, scale)
+        else:
+            length = torch.full((batch,), cache_len, dtype=torch.int32,
+                                device=dev)
+            window = cfg.window if mixer == "swa" else None
+            attend = lambda: decode_attention(q, kc, vc, length, window,
+                                              scale)
+    return mixer, ln, device_ms(attend, dev, 10)
+
+
+def decode_state_ms(dev, cfg, params, cache, batch: int, gen) -> dict:
+    """{mixer: (device ms, layers)} of one decode step of the first
+    'mlstm' and the first 'slstm' block's mixer on its cached state (the
+    recurrent forms), on a random input from `gen`; {} without them."""
+    import torch
+    from repro_torch.models import layers as L
+
+    out = {}
+    for (bd, p), (_, c) in zip(model_blocks(cfg, params["segments"]),
+                               model_blocks(cfg, cache["segments"])):
+        if bd.mixer not in ("mlstm", "slstm") or bd.mixer in out:
+            continue
+        x1 = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+        fn = getattr(L, bd.mixer + "_block")
+        n = sum(b.mixer == bd.mixer for b, _ in model_blocks(
+            cfg, params["segments"]))
+        out[bd.mixer] = (device_ms(lambda: fn(p["mixer"], x1, cfg, c), dev,
+                                   10), n)
+    return out
+
+
 def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
                frontend: int = 0, smoke: bool = False):
     """One architecture through the serving entry points: `init_params`
@@ -3817,12 +3960,10 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.kernels.flash_attention import (cache_attention,
-                                                     decode_attention)
+    from repro_torch.kernels.flash_attention import decode_attention
     from repro_torch.kernels.wheel import launch_counts, reset_launches
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as M
-    from repro_torch.models.layers import mla_cache_attention
 
     cfg = (get_smoke_config if smoke else get_config)(arch)
     if depth:
@@ -3908,42 +4049,22 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
                                  p_ev, key=lambda e: -e.self_device_time_total
                              )[:8]]}
 
-    # the prefill against the plain versions: lockstep, then end to end
-    with torch.no_grad():
-        p_rec, p_last, p_cache = recorded_prefill(params, plain_cfg, tokens,
-                                                  cache_len, fe)
-        lock_p, moe_p = lockstep_prefill(cfg, p_rec)
-        p_leaves = _leaves(p_cache["segments"])
-        del p_cache
-        k_rec, k_last, k_cache = recorded_prefill(params, cfg, tokens,
-                                                  cache_len, fe)
-        rerun_equal = bool(torch.equal(k_last, last))
-        del k_cache
-        e2e = end_to_end(last, prefill_leaves, k_rec, p_last, p_leaves,
-                         p_rec)
-        del k_rec
-        s_rec, s_last, s_cache = recorded_prefill(params, cfg, tokens,
-                                                  cache_len, fe,
-                                                  sdpa_attention)
-        floor = end_to_end(s_last, _leaves(s_cache["segments"]), s_rec,
-                           p_last, p_leaves, p_rec)
-        del s_rec, s_cache, p_rec, p_leaves, prefill_leaves
-    assert e2e["first_tokens_equal"] == batch, (
-        f"{arch}: the first greedy token of the kernels-on prefill differs "
-        f"from the plain one's in {batch - e2e['first_tokens_equal']} rows; "
-        f"first block parting (index, error): {e2e['parting']}")
-    assert max(lock_p) <= SERVE_BOUND, (
-        f"{arch}: a block with kernels differs from its plain version on "
-        f"the same input by {max(lock_p):.3g} (bound {SERVE_BOUND}) at "
-        f"block {lock_p.index(max(lock_p))}; MoE blocks: {moe_p}")
-    for i, r in moe_p.items():
-        assert r["topk_set_differs"] <= MOE_FLIP_RATIO * r["sdpa"][
-            "topk_set_differs"], (
-            f"{arch}: MoE block {i}'s tokens pick another top-k set with the "
-            f"kernels than with their plain versions in "
-            f"{r['topk_set_differs']:.4%} of them, more than {MOE_FLIP_RATIO}"
-            f" x the {r['sdpa']['topk_set_differs']:.4%} with SDPA in the "
-            f"kernel's place: {r}")
+    # the prefill against the plain versions: lockstep, then end to end.
+    # On a path that launched no kernel on the card (xLSTM: no attention,
+    # no RG-LRU) the kernels-on model is the plain one, and the checks
+    # would compare a run with itself: skipped, and said so (a CPU
+    # rehearsal, which launches none anywhere, runs them)
+    kernel_free = dev.type == "cuda" and not any(counts.values())
+    if kernel_free:
+        log(f"  {arch}: the main path launched no kernel (its launches: "
+            f"{counts}); the checks against the plain versions would "
+            f"compare a run with itself and are skipped")
+        lock_p, moe_p, e2e, floor, rerun_equal = [], {}, None, None, None
+    else:
+        lock_p, moe_p, e2e, floor, rerun_equal = plain_checks(
+            params, cfg, plain_cfg, tokens, cache_len, fe, last,
+            prefill_leaves, batch, arch)
+    del prefill_leaves
 
     # decode against the train forward over the prompt and the tokens fed
     seq_all = torch.cat([tokens] + fed, 1)
@@ -3961,9 +4082,14 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
                                                   cache_len)
         del t_rec
         worst = max(range(steps), key=tf_errs.__getitem__)
+        # where decode and the forward part, where the bound is missed
+        # (not on a kernel-free cell: a prefill and a forward more of the
+        # sLSTM's eager loop, ~5 s, for a figure its lockstep already
+        # bounds)
         tf_part = (decode_parting(params, cfg, seq_all, seq + worst,
                                   cache_len, fe)
-                   if tf_errs[worst] > SERVE_BOUND else None)
+                   if tf_errs[worst] > SERVE_BOUND and not kernel_free
+                   else None)
     lock_d_max = max(max(v) for v in lock_d.values())
     assert lock_d_max <= SERVE_BOUND, (
         f"{arch}: a block's decode differs from the train forward on the "
@@ -3975,40 +4101,14 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         f"top-k set than the train forward's routing of them (at most "
         f"{MOE_DECODE_FLIPS}): {moe_d}")
 
-    # one layer's decode attention over its full cache, and the f32 head
+    # one layer's decode attention over its full cache (an xLSTM
+    # layer's state update instead), and the f32 head
     gen = torch.Generator(device=dev).manual_seed(23)
     attn = attention_blocks(cfg, cache)
-    mixer, blk = attn[0]
-    ln = cache_len
-    if mixer == "mla":  # the absorption form over the compressed cache
-        m = cfg.mla
-        q = torch.randn((batch, cfg.num_heads, 1,
-                         m.qk_nope_dim + m.qk_rope_dim), generator=gen,
-                        device=dev).to(cfg.torch_dtype)
-        wkv_b = [p["mixer"]["wkv_b"] for bd, p in model_blocks(
-            cfg, params["segments"]) if bd.mixer == "mla"][0].reshape(
-            m.kv_lora_rank, cfg.num_heads, m.qk_nope_dim + m.v_head_dim)
-        valid = torch.ones(ln, dtype=torch.bool, device=dev)
-        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-        attend = lambda: mla_cache_attention(
-            q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:], blk["ckv"],
-            blk["krope"], wkv_b, valid, scale)
-    else:
-        kc, vc = blk["k"], blk["v"]
-        ln = kc.shape[2]
-        q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
-                        device=dev).to(cfg.torch_dtype)
-        scale = cfg.attn_scale or cfg.hd ** -0.5
-        if mixer == "swa" and ln == cfg.window:  # the rolling buffer
-            valid = torch.ones((batch, ln), dtype=torch.bool, device=dev)
-            attend = lambda: cache_attention(q, kc, vc, valid, scale)
-        else:
-            length = torch.full((batch,), cache_len, dtype=torch.int32,
-                                device=dev)
-            window = cfg.window if mixer == "swa" else None
-            attend = lambda: decode_attention(q, kc, vc, length, window,
-                                              scale)
-    att_ms = device_ms(attend, dev, 10)
+    mixer, ln, att_ms = (decode_attention_ms(dev, cfg, params, attn, batch,
+                                             cache_len, gen)
+                         if attn else (None, None, None))
+    state_ms = decode_state_ms(dev, cfg, params, cache, batch, gen)
     # a cross-attention block's decode: the cached keys normed again, then
     # `decode_attention` over the memory (plain, as the reference's)
     cross = [(bd, p, c) for (bd, p), (_, c) in zip(
@@ -4021,6 +4121,8 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         xbd, xp, xblk = cross[0]
         xw = (xp["mixer"] if xbd.mixer == "xattn" else xp["cross"])
         xw = xw["knorm"]["w"]
+        q = torch.randn((batch, cfg.num_heads, 1, cfg.hd), generator=gen,
+                        device=dev).to(cfg.torch_dtype)
         xatt_ms = device_ms(lambda: decode_attention(
             q, rms_norm(xblk["xk"], xw), xblk["xv"]), dev, 10)
     x1 = torch.randn((batch, 1, cfg.d_model), generator=gen,
@@ -4050,14 +4152,20 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
            "decode_step_bound_ms": (param_bytes + cache_bytes)
            / HBM_BYTES_PER_S * 1e3,
            "decode_attention_ms": att_ms, "attention_layers": len(attn),
-           "decode_attention_share": share(att_ms * len(attn)),
+           "decode_attention_share":
+           None if att_ms is None else share(att_ms * len(attn)),
+           "decode_state_ms": {k: ms for k, (ms, _) in state_ms.items()},
+           "decode_state_share": share(sum(ms * n for ms, n in
+                                           state_ms.values()))
+           if state_ms else None,
+           "kernel_free": kernel_free,
            "decode_cross_attention_ms": xatt_ms,
            "cross_attention_layers": len(cross),
            "decode_cross_attention_share":
            None if xatt_ms is None else share(xatt_ms * len(cross)),
            "head_ms": head_ms, "head_share": share(head_ms),
            "kv_cache_gb": cache_bytes / 1e9, "peak_gb_main": peak_main,
-           "lockstep_prefill_max": max(lock_p),
+           "lockstep_prefill_max": max(lock_p) if lock_p else None,
            "lockstep_decode_max": {str(i): max(v) for i, v in lock_d.items()},
            "moe_lockstep": {"prefill": moe_p, "decode": moe_d} if moe_p
            else None,
@@ -4087,9 +4195,10 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
         f"weights and cache read once); peak {peak_main:.1f} GB (the "
         f"checks' {fig['peak_gb']:.1f})")
     log(f"    lockstep, each block with kernels vs plain on the same input: "
-        f"max {max(lock_p):.2e}; each block's decode vs the train forward "
-        f"at steps 0 and {steps - 1}: max {lock_d_max:.2e} (bound "
-        f"{SERVE_BOUND}, asserted)")
+        + (f"max {max(lock_p):.2e}" if lock_p else "skipped (no kernel)")
+        + f"; each block's decode vs the train forward at steps 0 and "
+        f"{steps - 1}: max {lock_d_max:.2e} (bound {SERVE_BOUND}, "
+        f"asserted)")
     fmt = lambda e: "none" if e is None else f"{e:.2e}"
     for i, r in moe_p.items():
         dec = [moe_d[st][i - encoder_blocks(cfg)] for st in sorted(moe_d)]
@@ -4110,24 +4219,30 @@ def serve_cell(dev, arch: str, depth, batch: int, seq: int, steps: int,
                         f"most {MOE_DECODE_FLIPS}), dropped "
                         f"{d['dropped']:.2%} (the forward's "
                         f"{d['dropped_other']:.2%})" for d in dec))
-    log(f"    end to end vs plain (bound {SERVE_BOUND} reported): last logits "
-        f"{e2e['last_logits']:.2e} ({met(e2e['last_logits'])}; SDPA in the "
-        f"kernel's place {floor['last_logits']:.2e}), cache max "
-        f"{e2e['cache']:.2e} at tensor {e2e['cache_tensor']} "
-        f"({met(e2e['cache'])}; SDPA {floor['cache']:.2e}), first greedy "
-        f"tokens equal in {e2e['first_tokens_equal']} of {batch} rows "
-        f"(SDPA {floor['first_tokens_equal']}), first block parting "
-        f"{e2e['parting']} (SDPA {floor['parting']}); the re-run's logits "
-        f"equal the main path's: {rerun_equal}")
+    if e2e is not None:
+        log(f"    end to end vs plain (bound {SERVE_BOUND} reported): last "
+            f"logits {e2e['last_logits']:.2e} ({met(e2e['last_logits'])}; "
+            f"SDPA in the kernel's place {floor['last_logits']:.2e}), cache "
+            f"max {e2e['cache']:.2e} at tensor {e2e['cache_tensor']} "
+            f"({met(e2e['cache'])}; SDPA {floor['cache']:.2e}), first greedy "
+            f"tokens equal in {e2e['first_tokens_equal']} of {batch} rows "
+            f"(SDPA {floor['first_tokens_equal']}), first block parting "
+            f"{e2e['parting']} (SDPA {floor['parting']}); the re-run's "
+            f"logits equal the main path's: {rerun_equal}")
     log(f"    decode vs the teacher-forced forward: max rel err "
         f"{max(tf_errs):.2e} at step {worst} ({met(max(tf_errs))}; first "
         f"block parting {tf_part}), argmax agreement {agree:.4f}")
     log(f"    one decode step profiled: wall {wall * 1e3:.2f} ms, device "
-        f"{step_dev_ms:.2f} ms in {step_launches} launches; decode "
-        f"attention {att_ms:.4f} ms a layer x {len(attn)} "
-        f"({mixer}, {ln} slots) = share "
-        f"{fig['decode_attention_share']}; float32 head {head_ms:.3f} ms "
-        f"(share {fig['head_share']})"
+        f"{step_dev_ms:.2f} ms in {step_launches} launches; "
+        + ("" if att_ms is None else
+           f"decode attention {att_ms:.4f} ms a layer x {len(attn)} "
+           f"({mixer}, {ln} slots) = share "
+           f"{fig['decode_attention_share']}; ")
+        + "".join(f"{k} state step {ms:.4f} ms a layer x {n}; "
+                  for k, (ms, n) in state_ms.items())
+        + ("" if not state_ms else
+           f"(share {fig['decode_state_share']}); ")
+        + f"float32 head {head_ms:.3f} ms (share {fig['head_share']})"
         + ("" if xatt_ms is None else
            f"; cross-attention decode (keys normed again, plain) "
            f"{xatt_ms:.4f} ms a layer x {len(cross)} = share "
@@ -4158,6 +4273,250 @@ def phase_serve_lm(dev, cells=SERVE_CELLS, smoke: bool = False):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return figs, total
+
+
+# -- phase 20: xLSTM-350M training, the mLSTM forms, rematerialisation ------
+
+MLSTM_CHUNKED_BOUND = 1e-4    # chunkwise vs quadratic, max |a - b| / max |b|
+MLSTM_RECURRENT_BOUND = 1e-3  # chunkwise vs the recurrent form, token by token
+
+
+def mlstm_forms(dev, batch: int = 4, seq: int = 2048, smoke: bool = False):
+    """One mLSTM block of xLSTM-350M at full width (d 1,024, 4 heads of
+    512; with `smoke` the smoke config's) in float32 over a seeded batch
+    x seq input: the chunkwise form (chunk 256) against the quadratic
+    form over every position (outputs and final state), and against the
+    recurrent form stepped token by token from the zero state (outputs
+    and final (C, n, m)); each form timed once on the host clock after a
+    synchronise (the quadratic form twice, the first call warming up)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace((get_smoke_config if smoke else get_config)(
+        "xlstm-350m"), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    p = L.init_mlstm(gen, cfg, torch.float32)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        _, q, k, v, li, lf = L.mlstm_inputs(p, x, cfg)
+        quad = lambda: L.mlstm_parallel(q, k, v, li, lf, return_state=True)
+        timed(quad)
+        (par, par_st), par_ms = timed(quad)
+        (chk, chk_st), chk_ms = timed(
+            lambda: L.mlstm_chunked(q, k, v, li, lf, 256))
+
+        def recurrent():
+            st = M._block_cache(cfg.pattern[0], cfg, batch, 1, torch.float32,
+                                dev)
+            outs = []
+            for t in range(seq):
+                o, st = L.mlstm_step(st, q[:, :, t:t + 1], k[:, :, t:t + 1],
+                                     v[:, :, t:t + 1], li[..., t:t + 1],
+                                     lf[..., t:t + 1])
+                outs.append(o)
+            return torch.cat(outs, 2), st
+
+        (rec, rec_st), rec_ms = timed(recurrent)
+        err = {"chunked_vs_quadratic": rel_err(chk, par),
+               "chunked_state_vs_quadratic": max(
+                   rel_err(chk_st[n], par_st[n]) for n in ("C", "n", "m")),
+               "chunked_vs_recurrent": rel_err(chk, rec),
+               "chunked_state_vs_recurrent": {
+                   n: rel_err(chk_st[n], rec_st[n]) for n in ("C", "n", "m")}}
+    assert err["chunked_vs_quadratic"] <= MLSTM_CHUNKED_BOUND, err
+    assert max([err["chunked_vs_recurrent"]]
+               + list(err["chunked_state_vs_recurrent"].values())
+               ) <= MLSTM_RECURRENT_BOUND, err
+    fig = {"batch": batch, "seq": seq, "d": cfg.d_model,
+           "heads": cfg.num_heads, "errors": err,
+           "quadratic_ms": par_ms, "chunked_ms": chk_ms,
+           "recurrent_ms": rec_ms}
+    log(f"  mLSTM forms, one block at d {cfg.d_model}, {cfg.num_heads} heads "
+        f"of {2 * cfg.d_model // cfg.num_heads}, float32, {batch} x {seq}: "
+        f"chunkwise vs quadratic {err['chunked_vs_quadratic']:.2e} (bound "
+        f"{MLSTM_CHUNKED_BOUND}; states "
+        f"{err['chunked_state_vs_quadratic']:.2e}), vs the recurrent form "
+        f"token by token {err['chunked_vs_recurrent']:.2e}, final (C, n, m) "
+        + ", ".join(f"{v:.2e}" for v in
+                    err["chunked_state_vs_recurrent"].values())
+        + f" (bound {MLSTM_RECURRENT_BOUND}); quadratic {par_ms:.1f} ms, "
+        f"chunkwise {chk_ms:.1f} ms, recurrent {rec_ms:.1f} ms")
+    return fig
+
+
+def mixer_fwd_bwd_ms(dev, cfg, mixer: str, batch: int, seq: int) -> float:
+    """Host milliseconds of one `mixer` block's mixer, forward and
+    backward, on seeded (batch, seq, d) input in the model dtype, from a
+    synchronise to a synchronise (one call: the training run before it
+    warmed up the same operations)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    p = getattr(L, "init_" + mixer)(gen, cfg, cfg.torch_dtype)
+    for t in p.values():
+        if isinstance(t, torch.Tensor):
+            t.requires_grad_()
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev
+                    ).to(cfg.torch_dtype).requires_grad_()
+    fn = getattr(L, mixer + "_block")
+    sync(dev)
+    t0 = time.perf_counter()
+    y, _ = fn(p, x, cfg)
+    y.float().sum().backward()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_train_xlstm(dev, steps: int = 2, batch: int = 4, seq: int = 2048,
+                      remat_steps: int = 1, smoke: bool = False):
+    """xLSTM-350M at full width and depth (24 blocks, 0.50 B parameters)
+    through `run_plain`: `steps` steps, finite, the first loss within 0.5
+    of ln V + 1/2 (a random tied head's logits have variance 1: RMS-normed
+    states against an N(0, 1/d) embedding); then `remat_steps` steps with
+    ``remat="block"``, whose losses and grad norms must equal the first
+    ones' (the schedule's scale is 1 at step 0 for any length) with a
+    lower peak; then one mLSTM and one sLSTM block forward and backward
+    at the step's shapes, for the step's breakdown. Returns (figures, the
+    launches of both runs)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_plain
+
+    cfg = (get_smoke_config if smoke else get_config)("xlstm-350m")
+    kw = dict(arch="xlstm-350m", batch=batch, seq_len=seq, device=str(dev))
+    reset_launches()
+    peak_reset(dev)
+    res = run_plain(train_args(steps=steps, **kw), cfg=cfg)
+    sync(dev)
+    peak = peak_gb(dev)
+    n_params = sum(p.numel() for p in _leaves(res.params))
+    res.params = None
+    want0 = math.log(cfg.vocab_size) + 0.5
+    assert all(np.isfinite(res.losses + res.grad_norms)), (
+        res.losses, res.grad_norms)
+    assert abs(res.losses[0] - want0) <= 0.5, (
+        f"xLSTM's first loss {res.losses[0]} is not within 0.5 of "
+        f"ln V + 1/2 = {want0}")
+    peak_reset(dev)
+    rem = run_plain(train_args(steps=remat_steps, **kw),
+                    cfg=dataclasses.replace(cfg, remat="block"))
+    sync(dev)
+    peak_remat = peak_gb(dev)
+    counts = launch_counts()
+    rem.params = None
+    pairs = list(zip(rem.losses + rem.grad_norms,
+                     res.losses[:remat_steps] + res.grad_norms[:remat_steps]))
+    d_remat = max(abs(a - b) / abs(b) for a, b in pairs)
+    bitwise = all(a == b for a, b in pairs)
+    assert d_remat <= 1e-6, (
+        f"remat='block' changed the run: {rem.losses}, {rem.grad_norms} "
+        f"against {res.losses}, {res.grad_norms}")
+    if dev.type == "cuda":
+        assert peak_remat < peak, (peak_remat, peak)
+    later = sorted(res.step_seconds[1:])
+    steady = later[len(later) // 2]
+    step_ms = steady * 1e3
+    mixers = {m: mixer_fwd_bwd_ms(dev, cfg, m, batch, seq)
+              for m in ("mlstm", "slstm")}
+    n_of = {m: sum(bd.mixer == m for pat, n in cfg.segments() for bd in pat
+                   for _ in range(n)) for m in mixers}
+    fig = {"layers": cfg.num_layers, "params": n_params, "batch": batch,
+           "seq": seq, "losses": res.losses, "grad_norms": res.grad_norms,
+           "first_loss_expected": want0,
+           "step_ms": [x * 1e3 for x in res.step_seconds],
+           "median_step_ms": step_ms, "tokens_per_s": batch * seq / steady,
+           "peak_gb": peak, "remat": {
+               "losses": rem.losses, "grad_norms": rem.grad_norms,
+               "max_rel_diff": d_remat, "bitwise_equal": bitwise,
+               "step_ms": [x * 1e3 for x in rem.step_seconds],
+               "peak_gb": peak_remat},
+           "mixer_fwd_bwd_ms": mixers, "mixer_layers": n_of,
+           "mixer_share": {m: mixers[m] * n_of[m] / step_ms for m in mixers}}
+    log(f"  xLSTM-350M ({cfg.num_layers} blocks, {n_params / 1e9:.3f} B "
+        f"params), batch {batch} x {seq}, run_plain {steps} steps: losses "
+        f"{[round(x, 4) for x in res.losses]} (first within 0.5 of ln V + "
+        f"1/2 = {want0:.4f}), grad norms "
+        f"{[round(x, 3) for x in res.grad_norms]}; median step "
+        f"{step_ms:.1f} ms = {batch * seq / steady:.0f} tokens/s; peak "
+        f"{peak:.2f} GB")
+    log(f"    remat='block', {remat_steps} steps: losses and grad norms "
+        f"{'bitwise equal' if bitwise else f'within {d_remat:.1e}'}; peak "
+        f"{peak_remat:.2f} GB against {peak:.2f}; steps "
+        f"{[round(x * 1e3, 1) for x in rem.step_seconds]} ms")
+    log(f"    one block's mixer forward + backward at {batch} x {seq}: "
+        + "; ".join(f"{m} {mixers[m]:.1f} ms x {n_of[m]} = "
+                    f"{fig['mixer_share'][m]:.0%} of the step"
+                    for m in mixers))
+    return fig, counts
+
+
+def phase_remat_smollm(dev, batch: int = 4, seq: int = 2048,
+                       smoke: bool = False):
+    """SmolLM-135M (30 periods of one attention block) through one
+    `run_plain` step under each ``remat``: losses and grad norms equal,
+    `flash_attention_fwd` launched once a layer without remat, twice
+    under "block" (the recompute) and once under "block_save_flash" (its
+    outputs kept), the peak of each. Returns (figures, the launches of
+    the three runs)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_plain
+    from repro_torch.models.model import REMATS
+
+    cfg = (get_smoke_config if smoke else get_config)("smollm-135m")
+    kw = dict(arch="smollm-135m", batch=batch, seq_len=seq, device=str(dev),
+              steps=1)
+    runs, total = {}, {}
+    for remat in REMATS:
+        reset_launches()
+        peak_reset(dev)
+        res = run_plain(train_args(**kw),
+                        cfg=dataclasses.replace(cfg, remat=remat))
+        sync(dev)
+        res.params = None
+        counts = launch_counts()
+        runs[remat] = {"loss": res.losses[0], "grad_norm": res.grad_norms[0],
+                       "step_ms": res.step_seconds[0] * 1e3,
+                       "flash_launches": counts["flash_attention_fwd"],
+                       "peak_gb": peak_gb(dev)}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    base = runs["none"]
+    for remat, r in runs.items():
+        for key in ("loss", "grad_norm"):
+            d = abs(r[key] - base[key]) / abs(base[key])
+            assert d <= 1e-6, f"remat={remat!r} changed the {key}: {runs}"
+    if dev.type == "cuda":
+        layers = cfg.num_layers
+        got = [runs[r]["flash_launches"] for r in REMATS]
+        assert got == [layers, 2 * layers, layers], (
+            f"flash forward launches under remat {REMATS}: {got}, want "
+            f"{[layers, 2 * layers, layers]}")
+    log(f"  SmolLM-135M, batch {batch} x {seq}, one step under each remat: "
+        + "; ".join(f"{r}: loss {v['loss']:.6f}, grad norm "
+                    f"{v['grad_norm']:.6f}, flash forward launches "
+                    f"{v['flash_launches']}, peak {v['peak_gb']:.2f} GB, step "
+                    f"{v['step_ms']:.1f} ms" for r, v in runs.items()))
+    return runs, total
 
 
 def main() -> int:
@@ -4385,11 +4744,23 @@ def main() -> int:
         "Llama-3.2-Vision-11B (full config) 4 x 2048 with 4100 vision "
         "tokens and 32 steps; DeepSeek-V3 at depth 4 (3 dense + 1 MoE "
         "layer), 4 x 2048 and 32 steps; Arctic at depth 2, 4 x 2048 and "
-        "32 steps; then flash_attention_fwd at the cells' prefill shapes, "
+        "32 steps; xLSTM-350M (full config) 4 x 2048 and 32 steps; then "
+        "flash_attention_fwd at the cells' prefill shapes, "
         "causal and non-causal, MLA's with v narrower than q and k")
     serve_lm, paths["serve_lm"] = phase_serve_lm(dev)
     flash_rows(dev, rows, 20, torch.Generator(device=dev).manual_seed(2029),
                SERVE_FLASH, clocks=False)
+    torch.cuda.empty_cache()
+
+    log("phase 20: xLSTM-350M training and the mLSTM forms: one mLSTM block "
+        "at full width in float32, 4 x 2048, chunkwise vs quadratic vs "
+        "recurrent; run_plain at full depth, 4 x 2048, 2 steps, then 1 with "
+        "remat='block'; SmolLM-135M, 4 x 2048, one step under each remat")
+    xlstm = {"mlstm_forms": mlstm_forms(dev)}
+    torch.cuda.empty_cache()
+    xlstm["train"], paths["train_xlstm"] = phase_train_xlstm(dev)
+    torch.cuda.empty_cache()
+    xlstm["remat_smollm"], paths["remat"] = phase_remat_smollm(dev)
     torch.cuda.empty_cache()
 
     for path, counts in paths.items():
@@ -4409,7 +4780,8 @@ def main() -> int:
         "engine's); serve: phase 16; sharded: phase 17's ranks, summed, its "
         "control plane too; control: phase 18's drills with kernels; "
         "train_smollm_resume: phase 18's two run_plain runs; serve_lm: phase "
-        "19's prefills and decode steps): "
+        "19's prefills and decode steps; train_xlstm: phase 20's xLSTM "
+        "runs, no kernel; remat: phase 20's SmolLM steps): "
         + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
@@ -4419,7 +4791,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm, 'xlstm': xlstm})}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -47,9 +47,8 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class BlockDef:
     """One layer's recipe: a mixer ('attn', 'swa', 'bidir', 'xattn',
-    'dec', 'mla', 'rglru' are ported; 'mlstm', 'slstm' are not yet) and
-    an FFN ('dense', 'moe', 'dense_moe' are ported; 'none', the xLSTM
-    blocks' own, is not yet)."""
+    'dec', 'mla', 'rglru', 'mlstm', 'slstm') and an FFN ('dense', 'moe',
+    'dense_moe', or 'none': the xLSTM mLSTM blocks' own)."""
 
     mixer: str
     ffn: str = "dense"

@@ -41,6 +41,7 @@ head against a cache, memory-bound.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -139,6 +140,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fwd = flash_attention_fwd if use_kernel else pair_fwd
     return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
                                  fwd)
+
+
+class SavedFlash:
+    """A stand-in for the flash forward (`flash_attention`'s `fwd`) that
+    keeps every call's (o, lse) so that a rematerialised forward reads
+    them back instead of computing them again: the reference's
+    ``save_only_these_names("flash_out")`` under ``jax.checkpoint``
+    (src/repro/models/model.py:381). Calls `fwd` and keeps its outputs,
+    except inside `replaying()`, where the i-th call returns the i-th
+    kept (o, lse) and launches nothing. `contexts` is
+    `torch.utils.checkpoint.checkpoint`'s ``context_fn``: the forward
+    runs as is, the recompute replays. The kept outputs live as long as
+    this object (the checkpoint keeps it until its backward)."""
+
+    def __init__(self, fwd: Callable):
+        self.fwd, self.kept, self._next = fwd, [], None
+
+    def __call__(self, q, k, v, causal=True, window=None, scale=None,
+                 q_offset=0):
+        if self._next is None:
+            o, lse = self.fwd(q, k, v, causal, window, scale, q_offset)
+            self.kept.append((o.detach(), lse))
+            return o, lse
+        o, lse = self.kept[self._next]
+        self._next += 1
+        return o.detach(), lse  # a fresh alias for the new graph node
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self._next = 0
+        try:
+            yield
+        finally:
+            self._next = None
+
+    def contexts(self):
+        return contextlib.nullcontext(), self.replaying()
 
 
 def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,

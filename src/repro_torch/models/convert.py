@@ -6,8 +6,12 @@ The reference stacks each segment's periods on a leading axis (one
 store projection weights as (in, out), so a leaf's values carry over
 as they are, a MoE block's expert stacks (E, d, ff) / (E, ff, d) a
 period too. Each leaf keeps its dtype: bfloat16 leaves (numpy's
-``ml_dtypes.bfloat16``) cross bit for bit, and the MoE's float32
-``router_bias`` stays float32 in a bfloat16 model.
+``ml_dtypes.bfloat16``) cross bit for bit, and the float32 leaves stay
+float32 in a bfloat16 model: the MoE's ``router_bias``, the mLSTM's
+``b_if``, the sLSTM's ``b_gates``, and every xLSTM state in a decode
+cache (an mLSTM's ``C`` / ``n`` / ``m``, an sLSTM's ``c`` / ``n`` /
+``h`` / ``m``). An FFN-less block ('none') has no ``norm2`` / ``ffn``
+on either side.
 """
 from __future__ import annotations
 
@@ -101,8 +105,9 @@ def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                    device="cpu") -> Dict[str, Any]:
     """The port's decode cache from the reference's (``{"pos": int32
     scalar, "segments": each period stacked on a leading axis}``, leaves
-    as numpy arrays; a cross-attention block's ``xk`` / ``xv`` and an
-    MLA block's ``ckv`` / ``krope`` too)."""
+    as numpy arrays; a cross-attention block's ``xk`` / ``xv``, an
+    MLA block's ``ckv`` / ``krope`` and an xLSTM block's float32 state
+    too)."""
     conv = lambda a: _to_torch(np.asarray(a), device)
     return {"pos": conv(np.asarray(tree["pos"], np.int32)),
             "segments": _segments_from_jax(tree["segments"], cfg.segments(),

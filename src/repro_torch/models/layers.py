@@ -1,7 +1,8 @@
 """Model building blocks, functional PyTorch (params are plain dicts):
-the subset of `repro.models.layers` that the ported architectures run
-(SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B, Command-R-35B,
-DeepSeek-V3, Arctic, Whisper-large-v3, Llama-3.2-Vision-11B).
+the counterparts of `repro.models.layers` that the ten registry
+architectures run (SmolLM-135M, RecurrentGemma-9B, Gemma-7B, MiniCPM-2B,
+Command-R-35B, DeepSeek-V3, Arctic, xLSTM-350M, Whisper-large-v3,
+Llama-3.2-Vision-11B).
 
   * norms: RMSNorm (with optional Gemma-style 1 + w), LayerNorm;
   * rotary embeddings;
@@ -25,7 +26,12 @@ DeepSeek-V3, Arctic, Whisper-large-v3, Llama-3.2-Vision-11B).
     SwiGLU in float32 a chunk of experts at a time, the gated combine and
     an optional shared expert; `moe_load_stats`;
   * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel
-    over a sequence, with its (h, conv history) state for decode.
+    over a sequence, with its (h, conv history) state for decode;
+  * the xLSTM mixers, plain PyTorch as the reference's XLA: the mLSTM
+    (matrix memory, exponential gating) in its stabilised quadratic form
+    (S <= 256), its chunkwise form (chunks of 256 carrying (C, n, m))
+    and its recurrent form (one token against the cached state), and
+    the sLSTM's sequential scan, one token a step.
 
 Weights keep the reference's (in, out) layout, so a projection is
 ``x @ w``. Matmuls run in the activation dtype with float32 accumulation
@@ -33,9 +39,8 @@ Weights keep the reference's (in, out) layout, so a projection is
 output, as the reference's ``preferred_element_type`` + cast does);
 norms, softmax and gates in float32.
 
-Not ported yet (ROADMAP.md §A8): the xLSTM mixers and the expert-
-parallel MoE dispatch (``impl="ep_a2a"``); each raises
-`NotImplementedError`.
+Not ported yet (ROADMAP.md §A8): the expert-parallel MoE dispatch
+(``impl="ep_a2a"``), which raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -564,3 +569,233 @@ def rglru_block(p: Params, x: torch.Tensor, cfg,
     y = matmul(h * gate, p["w_out"])
     keep = cache is not None or return_state
     return y, ({"h": h_last, "conv": conv} if keep else None)
+
+
+# -- xLSTM mixers (mLSTM, sLSTM) ----------------------------------------
+
+def init_mlstm(gen, cfg, dtype) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    up = 2 * d
+    s = d ** -0.5
+    dev = gen.device
+    return {
+        "w_up": _normal(gen, (d, up), s, dtype),
+        "w_gate": _normal(gen, (d, up), s, dtype),
+        "w_q": _normal(gen, (up, up), up ** -0.5, dtype),
+        "w_k": _normal(gen, (up, up), up ** -0.5, dtype),
+        "w_v": _normal(gen, (up, up), up ** -0.5, dtype),
+        "w_if": _normal(gen, (up, 2 * h), s, dtype),  # i, f gates
+        # the gates' biases: float32 in any model dtype
+        "b_if": torch.cat([torch.zeros((h,), dtype=F32, device=dev),
+                           torch.full((h,), 3.0, dtype=F32, device=dev)]),
+        "w_down": _normal(gen, (up, d), up ** -0.5, dtype),
+        "skip_norm": init_norm(up, "rmsnorm", dtype, dev),
+    }
+
+
+def _neg_inf_above_diagonal(dmat: torch.Tensor) -> torch.Tensor:
+    """dmat (..., C, C) with -inf where the key comes after the query
+    (the diagonal always survives, so every row's max stays finite)."""
+    c = dmat.shape[-1]
+    mask = torch.ones((c, c), dtype=torch.bool, device=dmat.device).tril()
+    return dmat.masked_fill(~mask, float("-inf"))
+
+
+def _zero(t: torch.Tensor) -> torch.Tensor:
+    """A 0-d zero of t's dtype and device: `torch.maximum` against it
+    splits the gradient on ties, as ``jnp.maximum(x, 0.0)`` does
+    (`torch.clamp` would pass all of it)."""
+    return t.new_zeros(())
+
+
+def mlstm_inputs(p: Params, x: torch.Tensor, cfg):
+    """The mLSTM's projections of x (B, S, d): (gate (B, S, up) in x's
+    dtype, q, k, v (B, H, S, dh) float32, log_i, log_f (B, H, S)
+    float32). In the reference's rounding order: k is scaled by dh^-0.5
+    in the model dtype before the upcast, the gate is SiLU in float32
+    cast back, and the gate logits are the rounded product plus the
+    float32 bias ``b_if``."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    up = p["w_up"].shape[1]
+    dh = up // h
+    z = matmul(x, p["w_up"])
+    gate = F.silu(matmul(x, p["w_gate"]).float()).to(x.dtype)
+    heads = lambda w: matmul(z, w).reshape(b, s, h, dh).transpose(1, 2)
+    # dh^-0.5 rounded to the model dtype first, as a weak-typed Python
+    # scalar is in the reference
+    k = heads(p["w_k"]) * torch.tensor(dh ** -0.5, dtype=x.dtype)
+    ifg = matmul(z, p["w_if"]).float() + p["b_if"]
+    log_i = ifg[..., :h].transpose(1, 2)
+    log_f = F.logsigmoid(ifg[..., h:]).transpose(1, 2)
+    return (gate, heads(p["w_q"]).float(), k.float(),
+            heads(p["w_v"]).float(), log_i, log_f)
+
+
+def mlstm_parallel(q, k, v, log_i, log_f, return_state: bool = False):
+    """The stabilised quadratic (parallel) form: q, k, v (B, H, S, dh)
+    float32 (k scaled), log_i, log_f (B, H, S) -> (h (B, H, S, dh), the
+    final ``{"C", "n", "m"}`` when `return_state`, else None)."""
+    cf = torch.cumsum(log_f, -1)
+    dmat = _neg_inf_above_diagonal(cf[..., :, None] - cf[..., None, :]
+                                   + log_i[..., None, :])
+    m = torch.maximum(torch.amax(dmat, -1), _zero(dmat))
+    w = torch.einsum("bhqd,bhkd->bhqk", q, k) * torch.exp(dmat - m[..., None])
+    norm = torch.maximum(torch.abs(w.sum(-1)), torch.exp(-m))
+    o = torch.einsum("bhqk,bhkd->bhqd", w, v) / norm[..., None]
+    if not return_state:
+        return o, None
+    # C_S = sum_j exp(cf_S - cf_j + li_j - m_C) k_j v_j^T
+    wj = cf[..., -1:] - cf + log_i
+    m_c = torch.maximum(torch.amax(wj, -1), _zero(wj))
+    wexp = torch.exp(wj - m_c[..., None])
+    return o, {"C": torch.einsum("bhs,bhsd,bhse->bhde", wexp, k, v),
+               "n": torch.einsum("bhs,bhsd->bhd", wexp, k), "m": m_c}
+
+
+# the chunkwise form halves its chunk while it does not divide S, as the
+# reference does, but not below this: where the reference's chunk falls
+# under it (to 1 at an odd S, a scan of S steps) the port takes chunks
+# of this many positions and a shorter last one
+MIN_CHUNK = 64
+
+
+def mlstm_chunked(q, k, v, log_i, log_f, chunk: int = 256):
+    """The chunkwise-parallel form: the quadratic form inside chunks of
+    `chunk` positions (halved while it does not divide S, down to
+    `MIN_CHUNK`; then the last chunk is shorter), the stabilised state
+    (C, n, m) carried across them; the same stabiliser as the quadratic
+    form (m_t = max(inter, intra, 0)), exact for any chunk length.
+    Arguments as `mlstm_parallel`'s; returns (h (B, H, S, dh), the final
+    ``{"C", "n", "m"}``)."""
+    b, h, s, dh = q.shape
+    c = chunk
+    while s % c and c > MIN_CHUNK:
+        c //= 2
+    cm = q.new_zeros((b, h, dh, dh))
+    n = q.new_zeros((b, h, dh))
+    ms = q.new_full((b, h), -1e30)
+    outs = []
+    for t0 in range(0, s, c):
+        part = slice(t0, t0 + c)
+        qq, kk, vv = q[:, :, part], k[:, :, part], v[:, :, part]
+        li = log_i[..., part]
+        bcum = torch.cumsum(log_f[..., part], -1)  # inclusive local decay
+        btot = bcum[..., -1]
+        dmat = _neg_inf_above_diagonal(bcum[..., :, None]
+                                       - bcum[..., None, :] + li[..., None, :])
+        m_inter = bcum + ms[..., None]
+        m_t = torch.maximum(torch.maximum(torch.amax(dmat, -1), m_inter),
+                            _zero(dmat))
+        w = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * torch.exp(
+            dmat - m_t[..., None])
+        inter = torch.exp(m_inter - m_t)
+        num = torch.einsum("bhqk,bhkd->bhqd", w, vv) + inter[..., None] \
+            * torch.einsum("bhqd,bhde->bhqe", qq, cm)
+        den = w.sum(-1) + inter * torch.einsum("bhqd,bhd->bhq", qq, n)
+        outs.append(num / torch.maximum(torch.abs(den),
+                                        torch.exp(-m_t))[..., None])
+        # the state at the chunk's end
+        wj = btot[..., None] - bcum + li
+        m_new = torch.maximum(torch.maximum(btot + ms, torch.amax(wj, -1)),
+                              _zero(wj))
+        carry = torch.exp(btot + ms - m_new)
+        wexp = torch.exp(wj - m_new[..., None])
+        cm = carry[..., None, None] * cm + torch.einsum(
+            "bhs,bhsd,bhse->bhde", wexp, kk, vv)
+        n = carry[..., None] * n + torch.einsum("bhs,bhsd->bhd", wexp, kk)
+        ms = m_new
+    return torch.cat(outs, 2), {"C": cm, "n": n, "m": ms}
+
+
+def mlstm_step(state: Params, q, k, v, log_i, log_f):
+    """The recurrent form, one token: state ``{"C": (B, H, dh, dh), "n":
+    (B, H, dh), "m": (B, H)}`` float32, q, k, v (B, H, 1, dh) float32,
+    log_i, log_f (B, H, 1) -> (h (B, H, 1, dh), the new state)."""
+    cm, n, m_prev = state["C"].float(), state["n"].float(), state["m"]
+    li, lf = log_i[..., 0], log_f[..., 0]
+    m_new = torch.maximum(lf + m_prev, li)
+    fi = torch.exp(lf + m_prev - m_new)[..., None]
+    ii = torch.exp(li - m_new)[..., None]
+    k1, v1, q1 = k[:, :, 0], v[:, :, 0], q[:, :, 0]
+    cm = fi[..., None] * cm + ii[..., None] * torch.einsum("bhd,bhe->bhde",
+                                                           k1, v1)
+    n = fi * n + ii * k1
+    num = torch.einsum("bhd,bhde->bhe", q1, cm)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q1, n)),
+                        torch.exp(-m_new))
+    return (num / den[..., None])[:, :, None], {"C": cm, "n": n, "m": m_new}
+
+
+def mlstm_block(p: Params, x: torch.Tensor, cfg,
+                cache: Optional[Params] = None, return_state: bool = False):
+    """The mLSTM mixer (xLSTM): matrix memory, exponential gating, over x
+    (B, S, d) -> (y (B, S, d), state). Without a cache: the quadratic
+    form for S <= 256, the chunkwise form (`mlstm_chunked`, chunk 256)
+    beyond; state is
+    the final ``{"C", "n", "m"}`` (float32) when `return_state` (a
+    prefill), else None. With a cache (S = 1): the recurrent form, and
+    state is the new cache."""
+    b, s, _ = x.shape
+    gate, q, k, v, log_i, log_f = mlstm_inputs(p, x, cfg)
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"mlstm_block: a decode step takes one token, "
+                             f"got {s}")
+        o, state = mlstm_step(cache, q, k, v, log_i, log_f)
+    elif s > 256:
+        o, state = mlstm_chunked(q, k, v, log_i, log_f, 256)
+    else:
+        o, state = mlstm_parallel(q, k, v, log_i, log_f, return_state)
+    if cache is None and not return_state:
+        state = None
+    y = o.transpose(1, 2).reshape(b, s, -1).to(x.dtype)
+    y = rms_norm(y, p["skip_norm"]["w"]) * gate
+    return matmul(y, p["w_down"]), state
+
+
+def init_slstm(gen, cfg, dtype) -> Params:
+    d = cfg.d_model
+    s = d ** -0.5
+    return {
+        "w_gates": _normal(gen, (d, 4 * d), s, dtype),  # i, f, z, o
+        "r_gates": _normal(gen, (d, 4 * d), s, dtype),  # recurrent
+        "b_gates": torch.zeros((4 * d,), dtype=F32, device=gen.device),
+        "w_out": _normal(gen, (d, d), s, dtype),
+    }
+
+
+def slstm_block(p: Params, x: torch.Tensor, cfg,
+                cache: Optional[Params] = None, return_state: bool = False):
+    """The sLSTM mixer (xLSTM): scalar memory, exponential gating and a
+    stabiliser, over x (B, S, d) -> (y (B, S, d), state): a sequential
+    scan, one token a step, from the cache ``{"c", "n", "h", "m"}`` (each
+    (B, d) float32) or from zeros (m from -1e30). state is the final
+    ``{"c", "n", "h", "m"}`` when a cache was given or `return_state` is
+    set (a prefill), else None. The recurrent h is rounded to the model
+    dtype before each product with ``r_gates``, as the reference's."""
+    b, s, d = x.shape
+    wx = matmul(x, p["w_gates"]).float() + p["b_gates"]  # (B, S, 4d)
+    if cache is None:
+        c, n, hs = (wx.new_zeros((b, d)) for _ in range(3))
+        m = wx.new_full((b, d), -1e30)
+    else:
+        c, n, hs, m = (cache[k].float() for k in ("c", "n", "h", "m"))
+    one = wx.new_ones(())
+    outs = []
+    for t in range(s):
+        # the product rounds to the model dtype, then widens in the add
+        g = torch.add(wx[:, t], matmul(hs.to(x.dtype), p["r_gates"]))
+        ig, fg, zg, og = g.chunk(4, -1)
+        lfm = F.logsigmoid(fg) + m
+        m_new = torch.maximum(lfm, ig)
+        i_ = torch.exp(ig - m_new)
+        f_ = torch.exp(lfm - m_new)
+        c = f_ * c + i_ * torch.tanh(zg)
+        n = f_ * n + i_
+        hs = torch.sigmoid(og) * c / torch.maximum(n, one)
+        m = m_new
+        outs.append(hs)
+    y = matmul(torch.stack(outs, 1).to(x.dtype), p["w_out"])
+    keep = cache is not None or return_state
+    return y, ({"c": c, "n": n, "h": hs, "m": m} if keep else None)

@@ -33,26 +33,37 @@ Entry points:
   make_cache, lm_loss
 
 Ported: blocks whose mixers are 'attn', 'swa', 'bidir', 'xattn', 'dec',
-'mla' (DeepSeek) or 'rglru' with a 'dense', 'moe' or 'dense_moe'
-(Arctic: the MLP and the MoE in parallel) FFN, DeepSeek's leading dense
-layers, RMSNorm or LayerNorm, encoders, frontend stubs, untied heads and
-sinusoidal positions. The xLSTM mixers (and their FFN-less blocks), MTP
-and rematerialisation raise `NotImplementedError` (ROADMAP.md §A8).
+'mla' (DeepSeek), 'rglru', 'mlstm' or 'slstm' (xLSTM) with a 'dense',
+'moe' or 'dense_moe' (Arctic: the MLP and the MoE in parallel) FFN or
+none ('none', the xLSTM mLSTM blocks': no ``norm2``, no ``ffn``),
+DeepSeek's leading dense layers, RMSNorm or LayerNorm, encoders,
+frontend stubs, untied heads, sinusoidal positions, and
+rematerialisation (``cfg.remat``: `_run_segments`). An xLSTM block's
+decode cache is its recurrent state, float32 in any model dtype: an
+mLSTM's ``{"C": (B, H, dh, dh), "n": (B, H, dh), "m": (B, H)}``, an
+sLSTM's ``{"c", "n", "h", "m"}`` (B, d each). MTP raises
+`NotImplementedError` (ROADMAP.md §A8).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import (SavedFlash,
+                                                 flash_attention_fwd,
+                                                 pair_fwd)
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 F32 = torch.float32
-MIXERS = ("attn", "swa", "bidir", "xattn", "dec", "mla", "rglru")
-FFNS = ("dense", "moe", "dense_moe")
+MIXERS = ("attn", "swa", "bidir", "xattn", "dec", "mla", "rglru", "mlstm",
+          "slstm")
+FFNS = ("dense", "moe", "dense_moe", "none")
+REMATS = ("none", "block", "block_save_flash")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -65,8 +76,8 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"norm {cfg.norm!r} is {L.NOT_PORTED}")
     if cfg.mtp:
         raise NotImplementedError(f"{cfg.name}: MTP is {L.NOT_PORTED}")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"remat={cfg.remat!r} is {L.NOT_PORTED}")
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r}; want one of {REMATS}")
 
 
 # -- init --------------------------------------------------------------------
@@ -84,8 +95,14 @@ def _init_block(gen, bd: BlockDef, cfg: ModelConfig, dtype) -> Params:
         p["mixer"] = L.init_attention(gen, cfg, dtype)
         p["cross"] = L.init_cross_attention(gen, cfg, dtype)
         p["norm_cross"] = norm()
+    elif bd.mixer == "mlstm":
+        p["mixer"] = L.init_mlstm(gen, cfg, dtype)
+    elif bd.mixer == "slstm":
+        p["mixer"] = L.init_slstm(gen, cfg, dtype)
     else:
         p["mixer"] = L.init_rglru_block(gen, cfg, dtype)
+    if bd.ffn == "none":
+        return p
     p["norm2"] = norm()
     dense = lambda: L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                                dtype)
@@ -147,7 +164,18 @@ def _block_cache(bd: BlockDef, cfg: ModelConfig, b: int, cache_len: int,
     if bd.mixer == "rglru":
         w = cfg.rec_width or cfg.d_model
         return {"h": z(b, w), "conv": z(b, 3, w)}
-    raise NotImplementedError(f"mixer {bd.mixer!r} is {L.NOT_PORTED}")
+    # the xLSTM states: float32 in any model dtype, m from -1e30
+    f32 = lambda *shape: torch.zeros(shape, dtype=F32, device=device)
+    lowest = lambda *shape: torch.full(shape, -1e30, dtype=F32, device=device)
+    if bd.mixer == "mlstm":
+        h, dhm = cfg.num_heads, 2 * cfg.d_model // cfg.num_heads
+        return {"C": f32(b, h, dhm, dhm), "n": f32(b, h, dhm),
+                "m": lowest(b, h)}
+    if bd.mixer == "slstm":
+        d = cfg.d_model
+        return {"c": f32(b, d), "n": f32(b, d), "h": f32(b, d),
+                "m": lowest(b, d)}
+    raise ValueError(f"mixer {bd.mixer!r}")
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -245,14 +273,14 @@ def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  parts: Optional[dict] = None):
     """(x, new_cache). With `prefill_len` (and no cache) builds the
     block's fresh cache; with a cache, decodes one token against it (an
-    attention or MLA cache is updated in place). 'xattn' and 'dec'
-    blocks attend to `memory` (B, M, d) when they have no cache.
-    `attend`, a function of `flash_attention_fwd`'s signature, stands in
-    for the kernel in the block's attention over a sequence. With
-    `parts`, a dict, the block writes into it the mixer's output
-    ("mixer", the last one added before the FFN), the FFN's normed input
-    ("ffn_in") and output ("ffn"), and a MoE's routing ("experts",
-    "keep")."""
+    attention or MLA cache is updated in place, a recurrent state, the
+    RG-LRU's or an xLSTM mixer's, replaced). 'xattn' and 'dec' blocks
+    attend to `memory` (B, M, d) when they have no cache. `attend`, a
+    function of `flash_attention_fwd`'s signature, stands in for the
+    kernel in the block's attention over a sequence. With `parts`, a
+    dict, the block writes into it the mixer's output ("mixer", the last
+    one added before the FFN), the FFN's normed input ("ffn_in") and
+    output ("ffn"), and a MoE's routing ("experts", "keep")."""
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     new_cache = None
     if bd.mixer in ("attn", "swa", "bidir", "dec", "mla"):
@@ -273,12 +301,14 @@ def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
                                   attend)
         if cache is not None or prefill_len is not None:
             new_cache = {"xk": xc["k"], "xv": xc["v"]}
-    elif bd.mixer == "rglru":
-        y, new_cache = L.rglru_block(p["mixer"], h, cfg, cache,
-                                     return_state=prefill_len is not None)
     else:
-        raise NotImplementedError(f"mixer {bd.mixer!r} is {L.NOT_PORTED}")
+        block = {"rglru": L.rglru_block, "mlstm": L.mlstm_block,
+                 "slstm": L.slstm_block}[bd.mixer]
+        y, new_cache = block(p["mixer"], h, cfg, cache,
+                             return_state=prefill_len is not None)
     x = x + y
+    if bd.ffn == "none":
+        return x, new_cache
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     f = _ffn(bd, p, h, cfg, parts)
     if parts is not None:
@@ -293,14 +323,27 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
                   prefill_len: Optional[int] = None,
                   memory: Optional[torch.Tensor] = None):
     """x through every period of every segment, in order: (x, the new
-    caches in the cache layout, or None when none was asked for)."""
+    caches in the cache layout, or None when none was asked for).
+
+    With ``cfg.remat`` "block" (and no cache asked for, autograd on) each
+    period runs under `torch.utils.checkpoint` (non-reentrant): its
+    activations are dropped and recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of its scan body. "block_save_flash"
+    keeps the flash forward's outputs (`SavedFlash`), so the recompute
+    does not launch the kernel again (every flash call of the period,
+    cross-attention's too, where the reference tags the self-attention
+    and MLA outputs only)."""
     want = cache_segs is not None or prefill_len is not None
+    remat = cfg.remat != "none" and not want and torch.is_grad_enabled()
     out = []
     for si, (pseg, (pat, _)) in enumerate(zip(params_segs, segs)):
         cseg = None if cache_segs is None else cache_segs[si]
         new_seg = []
         for i, period in enumerate(pseg):
             cper = (None,) * len(pat) if cseg is None else cseg[i]
+            if remat:
+                x = _remat_period(pat, period, x, cfg, positions, memory)
+                continue
             new_per = []
             for bd, pp, cc in zip(pat, period, cper):
                 x, c = _apply_block(bd, pp, x, cfg, positions, cc, cache_pos,
@@ -309,6 +352,26 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
             new_seg.append(tuple(new_per))
         out.append(new_seg)
     return x, (out if want else None)
+
+
+def _remat_period(pat, period, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, memory: Optional[torch.Tensor]):
+    """One period's blocks on x under `torch.utils.checkpoint` (see
+    `_run_segments`)."""
+    kw = {"memory": memory}
+    context_fn = torch.utils.checkpoint.noop_context_fn
+    if cfg.remat == "block_save_flash":
+        kw["attend"] = SavedFlash(flash_attention_fwd if cfg.use_kernels
+                                  else pair_fwd)
+        context_fn = kw["attend"].contexts
+
+    def run(x):
+        for bd, pp in zip(pat, period):
+            x, _ = _apply_block(bd, pp, x, cfg, positions, **kw)
+        return x
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             context_fn=context_fn)
 
 
 # -- entry points -------------------------------------------------------

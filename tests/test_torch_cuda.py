@@ -1026,3 +1026,60 @@ def test_moe_smoke_models_kernels_match_plain(cuda, arch):
         assert rel(a, b) <= 1e-4
     for a, b in zip(got_c, want_c):
         assert rel(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [1024, 2048])
+def test_mlstm_chunked_matches_quadratic_at_full_width(cuda, s):
+    """One mLSTM block of xLSTM-350M at full width (d 1,024, 4 heads of
+    512) in float32 on the card, 2 x S: the chunkwise form (chunk 256)
+    against the quadratic form, outputs and final (C, n, m), within 1e-4
+    relative (float32 sums in another order)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("xlstm-350m"), dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    p = L.init_mlstm(gen, cfg, torch.float32)
+    x = torch.randn((2, s, cfg.d_model), generator=gen, device=cuda)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    with torch.no_grad():
+        _, q, k, v, li, lf = L.mlstm_inputs(p, x, cfg)
+        par, par_st = L.mlstm_parallel(q, k, v, li, lf, return_state=True)
+        chk, chk_st = L.mlstm_chunked(q, k, v, li, lf, 256)
+    assert rel(chk, par) <= 1e-4
+    for n in ("C", "n", "m"):
+        assert rel(chk_st[n], par_st[n]) <= 1e-4, n
+
+
+def test_remat_keeps_or_recomputes_the_flash_forward(cuda):
+    """SmolLM's smoke config (float32, 4 layers) on the card: `lm_loss`'s
+    gradients under remat "block" and "block_save_flash" equal the plain
+    backward's, and the flash kernel launches once a layer without
+    remat, twice under "block" and once under "block_save_flash"."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_smoke_config("smollm-135m")
+    params = M.init_params(cfg, 5, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                        generator=gen)
+    runs = []
+    for remat in M.REMATS:
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        reset_launches()
+        loss = M.lm_loss(live, dataclasses.replace(cfg, remat=remat), tok,
+                         tok.roll(-1, 1))
+        grads = torch.autograd.grad(loss, leaves(live))
+        torch.cuda.synchronize()
+        runs.append((loss, grads, launch_counts()["flash_attention_fwd"]))
+    n = cfg.num_layers
+    assert [r[2] for r in runs] == [n, 2 * n, n]
+    for loss, grads, _ in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, runs[0][1]))

@@ -128,7 +128,7 @@ def test_configs_are_the_reference_s():
     """Full and smoke configs field for field (MoEConfig and MLAConfig
     too; the port's `use_kernels` for the reference's `use_pallas`) and
     their segments (DeepSeek's leading dense layers); the full configs'
-    widths as published; xLSTM still raises."""
+    widths as published; DeepSeek's MTP head still raises."""
     for arch in ARCHS:
         for get, rget in ((registry.get_config, r_registry.get_config),
                           (registry.get_smoke_config,
@@ -152,8 +152,9 @@ def test_configs_are_the_reference_s():
             ar.d_ff, ar.moe.n_experts, ar.moe.top_k, ar.moe.d_ff,
             ar.moe.router, ar.pattern[0].ffn) == (
         35, 7168, 56, 8, 4864, 128, 2, 4864, "softmax", "dense_moe")
+    mtp = dataclasses.replace(registry.get_smoke_config(ARCHS[0]), mtp=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A8"):
-        registry.get_config("xlstm-350m")
+        M.init_params(mtp, 0, "cpu")
 
 
 # (B, Hq, Hkv, S, Dqk, Dv, causal): MLA's smoke and full widths
