@@ -4,7 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/``), then, in order:
+``build/``), then runs the phases below. They run in this order but
+for the checks that time nothing (phase 2's CUDA tests, phases 3 and
+12 in a spawned process, the n = 4096 parity of phases 15 and 16, and
+phase 18's drills with the plain versions), which run after phase 16's
+load, beside phase 17's spawned jobs; phase 17's checks then follow,
+before phase 18:
 
   1. prints the card's name and power limit and the kernel build time,
      each kernel's registers as ptxas reports them, and the count of
@@ -24,7 +29,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      (D = 16, M = 1,024, WW rows; beside its bound, the unfused
      FP32 issue-rate floor), each with its launch shape, `majority_step`
      at pad rows, and `descent_tail` on a real cycle's narrow tail beside
-     the card's launch floor (the device time of `torch.zeros(1)`); then
+     the card's launch floor (the device time of `torch.zeros(1)`); and
      the L2 forms' CUDA tests (tests/test_torch_cuda.py, the general
      kernel's tiling cases among them) in a pytest process of their own;
   3. runs the engine with its kernels and with their plain versions, both
@@ -120,19 +125,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      latencies in cycles and ms, transitions (each kept as a digest),
      dropped 0;
  17. the sharded engine (`make_engine(..., mesh=)`, one process a rank
-     through `launch.mesh.spawn`): world 1 on NCCL and worlds 2 and 4 on
-     gloo, every rank on this card. Each world runs phase 3's majority
+     through `launch.mesh.spawn`, a job a world): world 1 on NCCL and
+     worlds 2 and 4 on gloo, every rank on this card. Each world runs phase 3's majority
      churn cell, and world 2 also its mean, L2 and no-threshold cells,
      the plain majority engine and phase 12's first fault schedule armed;
      every rank's gathered state must equal, by sha256 of every field,
      the kernels-on single engine's at each check of phases 3 and 12,
-     where that engine equalled the plain one. Each world runs phase 4
+     where that engine equalled the plain one. Worlds 1 and 2 run phase 4
      (n = 100,000, the same stage cycles), its wheel kernels held exactly
-     against their plain versions on its first cycle, each wheel kernel
-     launched once a cycle on every rank, rank 0 profiled, the exchange
-     timed alone; world 1 also runs phase 5 (n = 1,000,000), equal to its
-     engine in every state field, outputs and counters. The same two jobs
-     then run the control plane on the same groups: the tree collectives
+     against their plain versions on its first cycle; every world steps
+     that engine with each wheel kernel launched once a cycle on every
+     rank, rank 0 profiled, the exchange timed alone; world 1 also runs
+     phase 5 (n = 1,000,000), equal to its
+     engine in every state field, outputs and counters. The three jobs
+     run side by side, their times under each other's load. The same
+     jobs then run the control plane on their groups: the tree collectives
      (`core.tree_collectives`: reduce, broadcast and all-reduce of
      float32, bfloat16 and int64 tensors on the card, bit-identical to
      the host replay of the reference's schedule; a 4-byte and a 64 MiB
@@ -218,6 +225,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      step under each of ``remat`` "none", "block" and "block_save_flash":
      the same loss and grad norm, `flash_attention_fwd` launched 30, 60
      and 30 times (the recompute; the kept outputs), the peak of each;
+ 21. DeepSeek-V3 trained with its multi-token-prediction head: the
+     published widths (d 7,168, 128 heads, MLA ranks 1,536 / 512, dense
+     d_ff 18,432, expert d_ff 2,048, top-8, 1 shared expert, vocabulary
+     129,280, bf16) cut to depth 2 (one dense and one MoE MLA layer) and
+     16 routed experts of 256, batch 1 x 2,048, `run_plain` 3 steps
+     (finite; the first loss split into the trunk's and the head's
+     cross-entropy; `flash_attention_fwd` 3 launches a step), one step
+     profiled, then the first step with plain kernels (loss 5e-3, grad
+     norm 2e-2); `flash_attention_fwd` at its MLA shape (1, 128 / 128,
+     2,048, q and k 192, v 128) beside SDPA. The expert-parallel MoE
+     dispatch (`distributed.moe_ep`) is held in phase 17's NCCL world-1
+     job: one MoE layer of this cell's widths in float32 against the
+     gather implementation at capacity factor 8, forward and backward
+     within 1e-4, the bf16 routers' top-k flips reported;
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
@@ -225,7 +246,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
      schedule, phase 15's batched engines, phase 16, phase 17's ranks,
      summed, phase 18's kernels-on drills, phase 18's two trainer runs,
      phase 19's prefills and decode steps, phase 20's xLSTM runs (no
-     kernel) and its SmolLM remat steps):
+     kernel) and its SmolLM remat steps, phase 21's DeepSeek-V3 run):
      every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
@@ -322,6 +343,9 @@ PATH_KERNELS = {
     # SmolLM-135M steps under each remat
     "train_xlstm": set(),
     "remat": {"flash_attention_fwd"},
+    # phase 21: DeepSeek-V3 + MTP's run_plain (MLA's flash forward thrice
+    # a step; the MoE's dispatch and the backward are plain PyTorch)
+    "train_deepseek_mtp": {"flash_attention_fwd"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -348,6 +372,17 @@ def l2_ops_per_row(dim: int, ndirs: int, general: bool = False) -> int:
 
 
 T_START = time.perf_counter()
+
+
+def add_path(paths: dict, path: str, counts: dict = None) -> None:
+    """Adds `counts` (by default the launch counts since the last reset)
+    to `paths[path]`: a path driven in more than one window, or in
+    another process."""
+    from repro_torch.kernels.wheel import launch_counts
+
+    prev = paths.get(path, {})
+    counts = launch_counts() if counts is None else counts
+    paths[path] = {k: v + prev.get(k, 0) for k, v in counts.items()}
 
 
 def log(msg: str) -> None:
@@ -777,20 +812,31 @@ def phase_kernels(dev, sizes, iters: int) -> dict:
     return rows
 
 
-def phase_l2_cuda_tests() -> str:
+def start_l2_cuda_tests() -> subprocess.Popen:
     """The L2 forms' CUDA tests (tests/test_torch_cuda.py: the general
-    kernel's tiling cases among them), in a pytest process of their own on
-    this card; asserts they all pass. Returns pytest's summary line."""
+    kernel's tiling cases among them), started in a pytest process of
+    their own on this card; `finish_l2_cuda_tests` collects them."""
     env = dict(os.environ, PYTHONPATH=SRC)
-    res = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          os.path.join(HERE, "tests", "test_torch_cuda.py"), "-k",
-         "threshold_step_l2_kernel"], cwd=HERE, env=env, capture_output=True,
-        text=True, timeout=900)
-    tail = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
-    assert res.returncode == 0 and "passed" in tail and "skipped" not in \
-        tail, f"the L2 CUDA tests failed:\n{res.stdout[-4000:]}"
-    log(f"  the L2 kernels' CUDA tests on this card: {tail}")
+         "threshold_step_l2_kernel"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_l2_cuda_tests(proc: subprocess.Popen) -> str:
+    """Waits for `start_l2_cuda_tests`' process and asserts that every
+    test passed. Returns pytest's summary line."""
+    try:
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tail = out.strip().splitlines()[-1] if out.strip() else ""
+    assert proc.returncode == 0 and "passed" in tail and "skipped" not in \
+        tail, f"the L2 CUDA tests failed:\n{out[-4000:]}"
+    log(f"  phase 2's L2 kernels' CUDA tests on this card: {tail}")
     return tail
 
 
@@ -2122,7 +2168,7 @@ def _leaves(tree):
     return leaves(tree)
 
 
-def profile_train_step(dev, cfg, params, args) -> dict:
+def profile_train_step(dev, cfg, params, args, label: str = "RG-9B") -> dict:
     """Device time by kernel over one training step (a fresh optimizer
     state; one step to warm up first)."""
     import torch
@@ -2144,7 +2190,8 @@ def profile_train_step(dev, cfg, params, args) -> dict:
     wall, ev = device_events(dev, lambda: step(params, opt_state, *batch))
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
     launches = sum(e.count for e in ev)
-    log(f"  profile of one RG-9B step: wall {wall0 * 1e3:.1f} ms unprofiled, "
+    log(f"  profile of one {label} step: wall {wall0 * 1e3:.1f} ms "
+        f"unprofiled, "
         f"{wall * 1e3:.1f} profiled; device busy {dev_ms:.1f} ms in "
         f"{launches} device launches ({100 * dev_ms / (wall0 * 1e3):.0f}% of "
         f"the unprofiled wall)")
@@ -2211,31 +2258,38 @@ def phase_train_smollm(dev, steps: int = 12, batch: int = 8,
 
 # -- phase 18: the control plane in one process --------------------------------
 
-def phase_drills(dev, hosts: int = 4096, trials: int = 16) -> tuple:
+def drill_run(dev, wheel_kernels: str, hosts: int = 4096,
+              trials: int = 16) -> dict:
     """`runtime.elastic`'s drills on the torch engine at `hosts` peers
-    (`capacity_per_peer` 8): `churn_drill` (8 joins and leaves one cycle
-    apart after convergence, which leave some peers on a wrong output:
-    the drill must reconverge) and `decision_latency_profile` (`trials`
-    quorum votes as one `BatchedTorchEngine`), with every kernel and
-    with every plain version: the two dicts equal. Returns (the record,
-    the kernels-on runs' launches)."""
-    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    (`capacity_per_peer` 8) with `wheel_kernels`: `churn_drill` (8 joins
+    and leaves one cycle apart after convergence, which leave some peers
+    on a wrong output: the drill must reconverge) and
+    `decision_latency_profile` (`trials` quorum votes as one
+    `BatchedTorchEngine`), each timed."""
     from repro_torch.runtime import elastic
 
-    got, counts = {}, None
-    for wk in ("auto", "none"):
-        kw = dict(backend="torch", seed=0, device=dev, wheel_kernels=wk,
-                  capacity_per_peer=8)
-        reset_launches()
-        t0 = time.perf_counter()
-        c = elastic.churn_drill(hosts=hosts, events=8, spacing=1, **kw)
-        t1 = time.perf_counter()
-        d = elastic.decision_latency_profile(hosts=hosts, trials=trials, **kw)
-        sync(dev)
-        got[wk] = {"churn": c, "decision": d, "churn_s": t1 - t0,
-                   "decision_s": time.perf_counter() - t1}
-        if wk == "auto":
-            counts = launch_counts()
+    kw = dict(backend="torch", seed=0, device=dev,
+              wheel_kernels=wheel_kernels, capacity_per_peer=8)
+    t0 = time.perf_counter()
+    c = elastic.churn_drill(hosts=hosts, events=8, spacing=1, **kw)
+    t1 = time.perf_counter()
+    d = elastic.decision_latency_profile(hosts=hosts, trials=trials, **kw)
+    sync(dev)
+    return {"churn": c, "decision": d, "churn_s": t1 - t0,
+            "decision_s": time.perf_counter() - t1}
+
+
+def phase_drills(dev, plain: dict, hosts: int = 4096,
+                 trials: int = 16) -> tuple:
+    """`drill_run` with every kernel, its launches counted, against
+    `plain`, the same drills with every plain version (run earlier,
+    beside phase 17's jobs): the two dicts equal. Returns (the record,
+    the kernels-on run's launches)."""
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    reset_launches()
+    got = {"auto": drill_run(dev, "auto", hosts, trials), "none": plain}
+    counts = launch_counts()
     a, b = got["auto"], got["none"]
     assert a["churn"] == b["churn"] and a["decision"] == b["decision"], (
         "the drills differ between kernels and plain versions")
@@ -2253,7 +2307,7 @@ def phase_drills(dev, hosts: int = 4096, trials: int = 16) -> tuple:
         f"p50 {d['msgs_per_peer_p50']:.2f}; equal with every kernel and with "
         f"every plain version; kernels {a['churn_s']:.2f} + "
         f"{a['decision_s']:.2f} s, plain {b['churn_s']:.2f} + "
-        f"{b['decision_s']:.2f} s")
+        f"{b['decision_s']:.2f} s (beside phase 17's jobs)")
     return got, counts
 
 
@@ -2943,6 +2997,10 @@ def phase_serve_load(dev, n: int, updates: int = 4000, bursts: int = 16,
 # -- phase 17: the sharded engine on the card ---------------------------------
 
 SHARD_WORLDS = (1, 2, 4)
+# the worlds that run phase 4 at n = 1e5 to convergence; world 4 steps the
+# same engine only for its launch check, profile and exchange (its two
+# stages took ~30 s of the 4-rank job, which sets phase 17's time)
+SHARD_CONVERGE_WORLDS = (1, 2)
 WHEEL_PER_CYCLE = ("stage_rows", "threshold_step", "due_dedup", "descent_tail")
 
 
@@ -3033,22 +3091,24 @@ def exchange_cost(eng, dev, iters: int = 20) -> dict:
             "bytes_sent": sent, "bytes_gathered": sent * eng.n_shards}
 
 
-def shard_converge(dev, n: int, group) -> dict:
+def shard_converge(dev, n: int, group, converge: bool = True) -> dict:
     """Phase 4 on the sharded engine at n peers (1e5), converge at mu = 0.45,
     flip to 0.55 through `apply_coalesced`, converge again; the wheel
     kernels held exactly against their plain versions on the first cycle
     and on each cycle whose descent batch is 1.5 times the widest checked
     (`CycleKernelCheck`, its host time left out of the rate); then 10
     cycles with every wheel kernel launched once a cycle, a profile of 10
-    cycles and the exchange alone."""
+    cycles and the exchange alone. Without `converge`, only the last
+    three, from the engine's first cycle."""
     from repro_torch.kernels.wheel import launch_counts
 
     eng, votes, rng = make(n, dev, seed=3, mu=0.45, mesh=group)
-    chk = CycleKernelCheck(eng, dev, keys=("_descent", "_dedup", "_thresh",
-                                           "_stage"))
-    chk.restart()
-    out = {}
-    for stage, mu in ((1, None), (2, 0.55)):
+    out = {"checked": []}
+    if converge:
+        chk = CycleKernelCheck(eng, dev, keys=("_descent", "_dedup",
+                                               "_thresh", "_stage"))
+        chk.restart()
+    for stage, mu in ((1, None), (2, 0.55)) if converge else ():
         if mu is not None:
             new = votes_at(n, mu, rng)
             chg = (new != eng.votes()).nonzero()[0]
@@ -3066,9 +3126,10 @@ def shard_converge(dev, n: int, group) -> dict:
         out[f"stage{stage}"] = dict(cycles=eng.t - c0,
                                     messages=res["messages"],
                                     cycles_per_s=(eng.t - c0) / dt)
-    chk.remove()
-    assert chk.complete(), chk.checked
-    out["checked"] = chk.checked
+    if converge:
+        chk.remove()
+        assert chk.complete(), chk.checked
+        out["checked"] = chk.checked
     c0 = launch_counts()
     eng.step(10)
     per = {k: v - c0[k] for k, v in launch_counts().items()}
@@ -3111,15 +3172,17 @@ def big_counters(eng) -> dict:
 
 def shard_rank(dev, group, world: int, n_mid: int, n_big: int) -> dict:
     """Phase 17 on one rank of `group` (`world` ranks): the parity cells of
-    `world`, phase 4 at n_mid peers, and unless `n_big` is 0 phase 5 at
-    n_big; the rank's launch counts and its wall time."""
+    `world`, phase 4 at n_mid peers (to convergence at the worlds of
+    `SHARD_CONVERGE_WORLDS`), and unless `n_big` is 0 phase 5 at n_big;
+    the rank's launch counts and its wall time."""
     from repro_torch.kernels.wheel import launch_counts, reset_launches
 
     t0 = time.perf_counter()
     reset_launches()
     out = {"cells": {c: shard_cell_run(c, dev, mesh=group)
                      for c in shard_cells(world)}}
-    out["mid"] = shard_converge(dev, n_mid, group)
+    out["mid"] = shard_converge(dev, n_mid, group,
+                                converge=world in SHARD_CONVERGE_WORLDS)
     if n_big:
         out["big"] = shard_big(dev, n_big, group)
     sync(dev)
@@ -3129,13 +3192,16 @@ def shard_rank(dev, group, world: int, n_mid: int, n_big: int) -> dict:
 
 
 def shard_job(rank: int, world: int, dev, worlds, n_mid: int,
-              n_big: int, serve_bursts: int) -> dict:
+              n_big: int, serve_bursts: int, moe_ep: bool = False) -> dict:
     """One rank of a spawned job of `world` ranks: for each world size w
     of `worlds`, `shard_rank` on the job's first w ranks (the whole job,
     or a `dist.new_group` of them on the job's backend; the other ranks
     wait at a barrier), phase 5 at world 1 only; then the control plane
-    on the same groups (`control_rank`). Returns {w: this rank's record}
-    for the worlds it took part in, and "control"."""
+    on the same groups (`control_rank`); with `moe_ep` (a job of one
+    rank), phase 21's expert-parallel MoE check (`moe_ep_check`). Returns
+    {w: this rank's record} for the worlds it took part in, "control"
+    and, with `moe_ep`, "moe_ep"."""
+    import torch
     import torch.distributed as dist
 
     out, groups = {}, {}
@@ -3147,7 +3213,97 @@ def shard_job(rank: int, world: int, dev, worlds, n_mid: int,
                                 n_big if w == 1 else 0)
         dist.barrier()
     out["control"] = control_rank(rank, dev, groups, n_mid, serve_bursts)
+    if moe_ep:
+        torch.cuda.empty_cache()
+        out["moe_ep"] = moe_ep_check(dev)
     return out
+
+
+EP_BOUND = 1e-4  # max |a - b| / max |b|: the dispatch vs gather, float32
+
+
+def moe_ep_check(dev, tokens: int = 2048, smoke: bool = False) -> dict:
+    """Phase 21's MoE layer (`deepseek_cell`'s widths, widened to float32,
+    so that both routers compute float32 logits) through the
+    expert-parallel dispatch (`distributed.moe_ep`) on a (1, 1) mesh of
+    this rank's group, against the gather implementation at capacity
+    factor 8 (nothing dropped), forward and backward over 1 x `tokens`:
+    the output and every gradient (x's, the router's, the experts', the
+    shared expert's) within `EP_BOUND`; both timed, forward and backward
+    together; and, as information, the share of tokens whose top-k set
+    differs between the bf16 layer's two routers (the gather's rounds its
+    logits to bf16, the dispatch's keeps them float32)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.distributed import moe_ep as EP
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.tree import leaves, tree_map
+
+    base = deepseek_cell(smoke)
+    cfg = dataclasses.replace(base, dtype="float32", moe=dataclasses.replace(
+        base.moe, capacity_factor=8.0))
+    ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                          impl="ep_a2a"))
+    gen = torch.Generator(device=dev).manual_seed(2101)
+    p = L.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev)
+    c = torch.randn(x.shape, generator=gen, device=dev)
+    mesh = make_process_mesh((1, 1))
+
+    def run(which):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        xl = x.detach().requires_grad_()
+        y = L.moe(live, xl, which)
+        g = torch.autograd.grad((y * c).sum(), [xl] + leaves(live),
+                                allow_unused=True)
+        return y.detach(), g
+
+    def timed(which):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = run(which)
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (y_g, g_g), _ = timed(cfg)
+    EP.set_moe_mesh(mesh)
+    try:
+        (y_e, g_e), _ = timed(ep)
+        _, ep_ms = timed(ep)
+    finally:
+        EP.set_moe_mesh(None)
+    _, gather_ms = timed(cfg)
+    # x, then the layer's leaves in `leaves` order; router_bias only picks
+    # experts, and no gradient reaches it on either path
+    names = ("x", "router", "router_bias", "shared.w_down", "shared.w_gate",
+             "shared.w_up", "w_down", "w_gate", "w_up")
+    errs = {"y": rel_err(y_e, y_g)}
+    for n, a, b in zip(names, g_e, g_g, strict=True):
+        assert (a is None) == (b is None) == (n == "router_bias"), n
+        if b is not None:
+            errs[n] = rel_err(a, b)
+    assert max(errs.values()) <= EP_BOUND, errs
+    xb = x[0].bfloat16()
+    pb = {"router": p["router"].bfloat16(), "router_bias": p["router_bias"]}
+    pick_g = L.moe_route(pb, xb, base)[0]
+    pick_e = L.pick_experts(pb, L.router_scores(
+        xb.float() @ pb["router"].float(), base), base)[0]
+    flips = float((pick_g.sort(-1).values != pick_e.sort(-1).values
+                   ).any(-1).float().mean())
+    fig = {"tokens": tokens, "experts": cfg.moe.n_experts, "errors": errs,
+           "ep_ms": ep_ms, "gather_ms": gather_ms,
+           "bf16_topk_flip_share": flips}
+    log(f"  moe_ep (world 1, {torch.distributed.get_backend()}) vs "
+        f"gather, DeepSeek-V3's "
+        f"MoE layer ({cfg.moe.n_experts} experts, d {cfg.d_model}) in "
+        f"float32 at capacity factor 8, 1 x {tokens} tokens: max rel err "
+        f"{max(errs.values()):.2e} (bound {EP_BOUND:g}) over y and "
+        f"{len(errs) - 1} gradients; forward + backward {ep_ms:.1f} ms "
+        f"(gather {gather_ms:.1f} ms); bf16 routers' top-k sets differ on "
+        f"{100 * flips:.2f} % of tokens")
+    return fig
 
 
 # tree collectives on the card: the dtypes, and the sizes timed
@@ -3375,8 +3531,9 @@ def check_control(world_ctl: list, backend: str, serve_ref: dict,
             f"{n_set} settle cycles equal to phase 16's on every rank, "
             f"t={sv['cycles']}")
     sec = r0["seconds"]
-    rec["control_seconds"] = sec
-    log(f"  the control plane on rank 0 of the {backend} job: "
+    top = max(r0["tree"])  # the job's world
+    rec[f"control_seconds_world{top}"] = sec
+    log(f"  the control plane on rank 0 of the {backend} job of world {top}: "
         f"{sum(sec.values()):.1f} s (tree collectives {sec['tree']:.1f}, "
         f"serving {sec['serve']:.1f}, resize {sec['resize']:.1f})")
     if "resize" in r0:
@@ -3393,29 +3550,93 @@ def check_control(world_ctl: list, backend: str, serve_ref: dict,
     return rec
 
 
-def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
+def parity_job(rank: int, world: int, dev) -> dict:
+    """Phases 3 and 12 in a spawned process of their own, beside phase
+    17's jobs (they time nothing): {"want": the churn cells' and the
+    first fault schedule's kernels-on digests, "paths": the launch
+    counts of their paths}."""
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+
+    want, paths = {}, {}
+    for cell, label in (("majority", "majority"), ("mean", "mean"),
+                        ("l2", "l2"), ("majority_no_threshold",
+                                       "majority without the threshold "
+                                       "kernel")):
+        counts, want[cell] = phase_parity_churn(dev, cell, label)
+    paths["majority_no_threshold"] = counts
+    reset_launches()
+    phase_parity_l2_any_dim(dev, CHURN_N, 9)
+    paths["l2_any_dim"] = launch_counts()
+    reset_launches()
+    for i, cell in enumerate(FAULT_GRID):
+        digests = phase_fault_parity(dev, fault_schedule(*cell), "auto")
+        if i == 0:
+            want["armed"] = digests  # phase 17 reproduces it
+    paths["armed"] = launch_counts()
+    reset_launches()
+    phase_fault_parity(dev, fault_schedule(*FAULT_GRID[0]),
+                       ("enqueue", "descent"))
+    paths["armed_no_threshold"] = launch_counts()
+    return {"want": want, "paths": paths}
+
+
+def start_parity(dev):
+    """`parity_job` spawned (one rank) with a thread waiting on it.
+    Returns the future of its results."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch.mesh import spawn
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(spawn, parity_job, 1, "gloo", str(dev), timeout=900)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def start_sharded(dev, n_mid: int = N_MID, n_big: int = N_BIG,
+                  moe_ep: bool = True) -> list:
+    """Phase 17's spawned jobs, one a world, started side by side (a
+    thread waits on each) so that the caller can go on with other work:
+    world 1 on NCCL (with `moe_ep`, also `moe_ep_check`), worlds 2 and 4
+    on gloo (every rank on this card). Returns [(backend, worlds, future
+    of the job's results)] for `phase_sharded`."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch.mesh import spawn
+
+    # NCCL takes one rank a card: more ranks on this card go on gloo
+    jobs = (("nccl" if dev.type == "cuda" else "gloo", (1,)),) + tuple(
+        ("gloo", (w,)) for w in SHARD_WORLDS if w > 1)
+    pool = ThreadPoolExecutor(max_workers=len(jobs))
+    started = []
+    for backend, worlds in jobs:
+        bursts = SERVE_BURSTS_MULTI if max(worlds) > 1 else 0
+        # phase 21's expert-parallel MoE check rides the world-1 job
+        started.append((backend, worlds, pool.submit(
+            spawn, shard_job, max(worlds), backend, str(dev), worlds,
+            n_mid, n_big, bursts, moe_ep and worlds == (1,),
+            timeout=900)))
+    pool.shutdown(wait=False)
+    return started
+
+
+def phase_sharded(dev, started: list, conv: dict, big_ref: dict, want: dict,
                   serve_ref: dict, n_mid: int = N_MID,
                   n_big: int = N_BIG) -> tuple:
-    """Phase 17. World 1 on NCCL, then worlds 2 and 4 on gloo (every rank
-    on this card, one spawned job of 4 ranks, world 2 on its first two)
-    run `shard_rank`: every rank gathers the same state, and each cell's
-    digests equal `want`'s, the kernels-on single engine's of phases 3
-    and 12, held there against the plain engine at every check; the 1e5
-    stage cycles equal phase 4's; at world 1 the 1e6 state, outputs and
-    counters equal phase 5's. Returns (the record, the path's launches
-    summed over every rank)."""
+    """Phase 17 from the jobs of `start_sharded`, each rank running
+    `shard_rank` on its worlds: every rank gathers the same state, and
+    each cell's digests equal `want`'s, the kernels-on single engine's of
+    phases 3 and 12, held there against the plain engine at every check;
+    the 1e5 stage cycles equal phase 4's; at world 1 the 1e6 state,
+    outputs and counters equal phase 5's. Returns (the record, the
+    path's launches summed over every rank)."""
     want = dict(want, majority_plain=want["majority"])
     import torch
     from repro_torch.launch.mesh import spawn
 
     rec, launches = {}, {}
-    # NCCL takes one rank a card: more ranks on this card go on gloo
-    jobs = (("nccl" if dev.type == "cuda" else "gloo", (1,)),
-            ("gloo", tuple(w for w in SHARD_WORLDS if w > 1)))
-    for backend, worlds in jobs:
-        bursts = SERVE_BURSTS_MULTI if max(worlds) > 1 else 0
-        job = spawn(shard_job, max(worlds), backend, str(dev), worlds,
-                    n_mid, n_big, bursts, timeout=900)
+    for backend, worlds, fut in started:
+        job = fut.result()
+        if "moe_ep" in job[0]:
+            rec["moe_ep"] = job[0]["moe_ep"]
         rec.update(check_control([g["control"] for g in job], backend,
                                  serve_ref, want["majority"], launches))
         for world in worlds:
@@ -3451,10 +3672,13 @@ def phase_sharded(dev, conv: dict, big_ref: dict, want: dict,
                 f"to the kernels-on single engine of phases 3 and 12 (itself "
                 f"equal to the plain one) in full state at each of their "
                 f"checks; n={n_mid} "
-                + ", ".join(f"{st} {mid[st]['cycles']} cycles (phase 4: "
-                            f"{conv[st]['cycles']}) at "
-                            f"{mid[st]['cycles_per_s']:.1f} cycles/s"
-                            for st in stages) + "; rank 0 "
+                + (", ".join(f"{st} {mid[st]['cycles']} cycles (phase 4: "
+                             f"{conv[st]['cycles']}) at "
+                             f"{mid[st]['cycles_per_s']:.1f} cycles/s"
+                             for st in stages) if stages else
+                   "stepped from its start (phase 4's stages run at worlds "
+                   + ", ".join(map(str, SHARD_CONVERGE_WORLDS)) + ")")
+                + "; rank 0 "
                 f"{mid['profile']['device_ms_per_cycle']:.3f} ms device a "
                 f"cycle in {mid['profile']['launches_per_cycle']:.0f} "
                 f"launches; the exchange {mid['exchange']['ms']:.3f} ms, "
@@ -4519,6 +4743,126 @@ def phase_remat_smollm(dev, batch: int = 4, seq: int = 2048,
     return runs, total
 
 
+# -- phase 21: DeepSeek-V3 trained with its MTP head ---------------------------
+
+# MLA's flash forward at the training cell's shape (1, 128 / 128, 2048,
+# q and k 192, v 128), causal
+TRAIN_MLA_FLASH = (("deepseek_mla_train", (1, 128, 128, 2048, (192, 128),
+                                           None)),)
+
+
+def deepseek_cell(smoke: bool = False, experts: int = 16):
+    """Phase 21's model: DeepSeek-V3 at its published widths cut to depth
+    2 (one dense MLA layer, `first_dense_layers` 1, and one MoE MLA
+    layer) with `experts` routed experts of 256 and the MTP head; with
+    `smoke` the smoke config (its own 8 experts) at that depth."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+
+    base = (get_smoke_config if smoke else get_config)("deepseek-v3-671b")
+    moe = base.moe if smoke else dataclasses.replace(base.moe,
+                                                     n_experts=experts)
+    return dataclasses.replace(base, num_layers=2, first_dense_layers=1,
+                               mtp=True, moe=moe)
+
+
+def phase_train_deepseek_mtp(dev, steps: int = 3, batch: int = 1,
+                             seq: int = 2048, experts: int = 16,
+                             profile: bool = True, smoke: bool = False):
+    """DeepSeek-V3 with its MTP head (`deepseek_cell`) through
+    `run_plain`: `steps` steps, finite; the first loss split into the
+    trunk's cross-entropy and the head's (both computed at the init on
+    the run's first batch, their weighted sum the first loss within
+    5e-3); `flash_attention_fwd` launched 3 times a step (the dense
+    layer, the MoE layer, the MTP block); with `profile`, one step's
+    device time by kernel; then the first step with every kernel's plain
+    version from the same seed, its loss within 5e-3 and its grad norm
+    within 2e-2 (phase 9's bounds). Returns (figures, the launches of the
+    kernel run)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.train import run_plain
+    from repro_torch.models.model import init_params, lm_loss
+
+    cfg = deepseek_cell(smoke, experts)
+    kw = dict(arch="deepseek-v3-671b", batch=batch, seq_len=seq,
+              device=str(dev))
+    args = train_args(steps=steps, **kw)
+    params = init_params(cfg, args.seed, dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    state_gb = sum(p.numel() * (2 * p.element_size() + 8)
+                   for p in _leaves(params)) / 1e9
+    first = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch,
+                                   seed=args.seed)).next_batch()
+    tokens, targets = (torch.from_numpy(a).to(dev) for a in first)
+    with torch.no_grad():
+        trunk = float(lm_loss(params, dataclasses.replace(cfg, mtp=False),
+                              tokens, targets))
+        total = float(lm_loss(params, cfg, tokens, targets))
+    head = (total - trunk) / cfg.mtp_weight
+    del tokens, targets
+    peak_reset(dev)
+    reset_launches()
+    res = run_plain(args, cfg=cfg, params=params)
+    sync(dev)
+    counts = launch_counts()
+    peak = peak_gb(dev)
+    params, res.params = res.params, None
+    assert all(np.isfinite(res.losses + res.grad_norms)), (
+        res.losses, res.grad_norms)
+    d_parts = abs(total - res.losses[0]) / abs(res.losses[0])
+    assert d_parts <= 5e-3, (
+        f"trunk {trunk} + {cfg.mtp_weight} x head {head} = {total} is not "
+        f"the first loss {res.losses[0]}")
+    if dev.type == "cuda":
+        assert counts["flash_attention_fwd"] == 3 * steps, counts
+    prof = (profile_train_step(dev, cfg, params, args, "DeepSeek-V3 + MTP")
+            if profile else None)
+    del params
+    torch.cuda.empty_cache()
+    plain = run_plain(train_args(steps=1, **kw),
+                      cfg=dataclasses.replace(cfg, use_kernels=False))
+    plain.params = None
+    d_loss = abs(plain.losses[0] - res.losses[0]) / abs(plain.losses[0])
+    d_norm = abs(plain.grad_norms[0] - res.grad_norms[0]) / plain.grad_norms[0]
+    assert d_loss <= 5e-3, f"first-step loss differs from plain: {d_loss}"
+    assert d_norm <= 2e-2, f"first-step grad norm differs from plain: {d_norm}"
+    later = sorted(res.step_seconds[1:])
+    steady = later[len(later) // 2]
+    fig = {"layers": cfg.num_layers, "routed_experts": cfg.moe.n_experts,
+           "params": n_params, "batch": batch, "seq": seq,
+           "losses": res.losses, "grad_norms": res.grad_norms,
+           "first_loss_parts": {"trunk_ce": trunk, "mtp_ce": head,
+                                "mtp_weight": cfg.mtp_weight,
+                                "rel_diff_to_first_loss": d_parts},
+           "step_ms": [x * 1e3 for x in res.step_seconds],
+           "median_step_ms": steady * 1e3,
+           "tokens_per_s": batch * seq / steady, "peak_gb": peak,
+           "weights_grads_adam_gb": state_gb,
+           "flash_launches": counts["flash_attention_fwd"],
+           "plain_first_loss": plain.losses[0],
+           "plain_first_grad_norm": plain.grad_norms[0],
+           "first_step_rel_diff": {"loss": d_loss, "grad_norm": d_norm},
+           "profile": prof}
+    log(f"  DeepSeek-V3 + MTP, depth {cfg.num_layers} ({cfg.moe.n_experts} "
+        f"routed experts; {n_params / 1e9:.3f} B params), batch {batch} x "
+        f"{seq}: losses {[round(x, 4) for x in res.losses]}, grad norms "
+        f"{[round(x, 3) for x in res.grad_norms]}; first loss = trunk CE "
+        f"{trunk:.4f} + {cfg.mtp_weight} x MTP CE {head:.4f} (rel diff "
+        f"{d_parts:.1e}); median step {steady * 1e3:.1f} ms = "
+        f"{batch * seq / steady:.0f} tokens/s; peak {peak:.2f} GB (weights, "
+        f"grads and AdamW m, v {state_gb:.2f} GB); flash forward launches "
+        f"{counts['flash_attention_fwd']}; first step vs plain kernels: "
+        f"loss rel diff {d_loss:.2e} (tol 5e-3), grad norm {d_norm:.2e} "
+        f"(tol 2e-2)")
+    return fig, counts
+
+
 def main() -> int:
     import torch
 
@@ -4573,27 +4917,12 @@ def main() -> int:
         f", narrow NT {dargs[0].shape[0]}, staged rows {sizes['staged']}")
     rows = phase_kernels(dev, sizes, iters=20)
     rows["threshold_step_l2_general"]["ptxas"] = l2_ptxas
-    rows["threshold_step_l2_general"]["cuda_tests"] = phase_l2_cuda_tests()
     p2_rows = {"descent_tail": int(dargs[0].shape[0]),
                "threshold_step": sizes["window"], "stage_rows": sizes["staged"]}
     del eng_a, sizes, dargs
     torch.cuda.empty_cache()
 
-    log("phase 3: engine parity, kernels vs plain versions, on the card")
-    n3 = 4096
-    # the churn cells' kernels-on digests: phase 17's sharded engines must
-    # reproduce them
     shard_want, paths = {}, {}
-    for cell, label in (("majority", "majority"), ("mean", "mean"),
-                        ("l2", "l2"), ("majority_no_threshold",
-                                       "majority without the threshold "
-                                       "kernel")):
-        counts, shard_want[cell] = phase_parity_churn(dev, cell, label)
-    paths["majority_no_threshold"] = counts
-    reset_launches()
-    phase_parity_l2_any_dim(dev, n3, 9)
-    paths["l2_any_dim"] = launch_counts()
-
     log("phase 4: majority main path at n = 100,000")
     reset_launches()
     conv = phase_converge(dev, N_MID)
@@ -4641,19 +4970,6 @@ def main() -> int:
     sm, paths["train_smollm_threshold"] = phase_train_smollm(dev)
     torch.cuda.empty_cache()
 
-    log("phase 12: the fault plane, kernels-on vs plain engines on the "
-        "card: the differential harness's four fault schedules, and the "
-        "majority crash schedule without the threshold kernel")
-    reset_launches()
-    for i, cell in enumerate(FAULT_GRID):
-        digests = phase_fault_parity(dev, fault_schedule(*cell), "auto")
-        if i == 0:
-            shard_want["armed"] = digests  # phase 17 reproduces it
-    paths["armed"] = launch_counts()
-    reset_launches()
-    phase_fault_parity(dev, fault_schedule(*FAULT_GRID[0]),
-                       ("enqueue", "descent"))
-    paths["armed_no_threshold"] = launch_counts()
     log(f"phase 13: the fault plane at scale: majority at n = {N_BIG:,} "
         f"armed with drops and delays, toward convergence (at most "
         f"{ARMED_BIG_CYCLES} cycles); n = {N_MID:,} with 16 crashes, "
@@ -4672,16 +4988,14 @@ def main() -> int:
     # must still go and the survivors converge; the live ones are counted
     armed["crash_1e5_seed7"] = phase_armed_crash(dev, N_MID, 7,
                                                  spread(1000), exact=False)
-    paths["armed"] = {k: v + paths["armed"][k]
-                      for k, v in launch_counts().items()}
+    add_path(paths, "armed")
     torch.cuda.empty_cache()
 
     log(f"phase 14: L2 at D = 9 with its default cover (the general L2 "
         f"kernel) at n = {N_BIG:,}")
     reset_launches()
     big, l2_d9 = phase_big_l2_any_dim(dev, N_BIG, 9, 100)
-    paths["l2_any_dim"] = {k: v + paths["l2_any_dim"][k]
-                           for k, v in launch_counts().items()}
+    add_path(paths, "l2_any_dim")
     l2_d9["profile"] = phase_profile(dev, big, 10,
                                      kernel="l2_threshold_general",
                                      count_as="threshold_step_l2_general")
@@ -4693,8 +5007,6 @@ def main() -> int:
     log(f"phase 15: batched trials: kernels-on B-trial engines vs serial "
         f"engines at n = 4096; the sweep grid (B = 24) at n = {N_MID:,}; "
         f"B = 4 at n = {N_BIG:,}")
-    phase_batched_parity(dev, 4096)
-    torch.cuda.empty_cache()
     # the batched path's one window: the sweep's engine (built, run to
     # convergence, 3 cycles at per-trial t) and B = 4 at 1e6
     reset_launches()
@@ -4710,28 +5022,60 @@ def main() -> int:
     sweep["profile"] = sweep_profile(dev, N_MID, 10)
     torch.cuda.empty_cache()
 
-    log(f"phase 16: the serve layer: kernels-on vs plain on the three serve "
-        f"schedules at n = 4096; majority at n = {N_MID:,} under 16 bursts")
+    log(f"phase 16: the serve layer: majority at n = {N_MID:,} under 16 "
+        f"bursts (its parity at n = 4096 runs beside phase 17)")
     reset_launches()
-    phase_serve_parity(dev, 4096)
     serve = phase_serve_load(dev, N_MID)
-    paths["serve"] = launch_counts()
+    add_path(paths, "serve")
     torch.cuda.empty_cache()
 
     log(f"phase 17: the sharded engine: kernels-on ShardedTorchEngine vs "
         f"phases 3 and 12's kernels-on single engines at n = {CHURN_N} and "
         f"on the first fault schedule (worlds 1, 2, 4); "
-        f"phase 4 at n = {N_MID:,} on each world; phase 5 at n = {N_BIG:,} "
-        f"at world 1")
-    shard, paths["sharded"] = phase_sharded(dev, conv, big_ref, shard_want,
-                                            serve)
+        f"phase 4 at n = {N_MID:,} on worlds "
+        f"{', '.join(map(str, SHARD_CONVERGE_WORLDS))} (world 4 steps it for "
+        f"its launches, profile and exchange); phase 5 at n = {N_BIG:,} "
+        f"at world 1. Its jobs (one a world) run side by side (their times "
+        f"under each other's load), and beside them the checks that time "
+        f"nothing: phase 2's L2 CUDA tests, phase 3, phase 12, and phases "
+        f"15 and 16's parity at n = 4096")
+    started = start_sharded(dev)
+    l2_tests = start_l2_cuda_tests()
+    log("phase 3: engine parity, kernels vs plain versions, on the card; "
+        "phase 12: the fault plane, kernels-on vs plain engines on the "
+        "card: the differential harness's four fault schedules, and the "
+        "majority crash schedule without the threshold kernel (both in a "
+        "process of their own)")
+    parity = start_parity(dev)
+
+    log("phase 15's parity: kernels-on B-trial engines vs serial engines "
+        "at n = 4096")
+    phase_batched_parity(dev, 4096)
+    log("phase 16's parity: kernels-on vs plain on the three serve "
+        "schedules at n = 4096")
+    reset_launches()
+    phase_serve_parity(dev, 4096)
+    add_path(paths, "serve")
+    log("phase 18's drills with every plain version (compared in phase 18)")
+    drills_plain = drill_run(dev, "none")
+    torch.cuda.empty_cache()
+    rows["threshold_step_l2_general"]["cuda_tests"] = \
+        finish_l2_cuda_tests(l2_tests)
+    par = parity.result()[0]
+    shard_want.update(par["want"])
+    for path, counts in par["paths"].items():
+        add_path(paths, path, counts)
+
+    log("phase 17, its jobs joined:")
+    shard, paths["sharded"] = phase_sharded(dev, started, conv, big_ref,
+                                            shard_want, serve)
     torch.cuda.empty_cache()
 
     log("phase 18: the control plane: the elastic drills at 4,096 hosts "
         "(kernels vs plain versions); SmolLM-135M run_plain with a checkpoint "
         "every 2 steps and a failure at step 4 of 6, against an "
         "uninterrupted run")
-    drills, paths["control"] = phase_drills(dev)
+    drills, paths["control"] = phase_drills(dev, drills_plain)
     resume, paths["train_smollm_resume"] = phase_resume(dev)
     torch.cuda.empty_cache()
 
@@ -4763,6 +5107,16 @@ def main() -> int:
     xlstm["remat_smollm"], paths["remat"] = phase_remat_smollm(dev)
     torch.cuda.empty_cache()
 
+    log("phase 21: DeepSeek-V3 trained with its MTP head: published widths "
+        "at depth 2 (1 dense + 1 MoE MLA layer, 16 routed experts), 1 x "
+        "2048, run_plain 3 steps, then its first step with plain kernels; "
+        "flash_attention_fwd at the cell's MLA shape")
+    deepseek, paths["train_deepseek_mtp"] = phase_train_deepseek_mtp(dev)
+    torch.cuda.empty_cache()
+    flash_rows(dev, rows, 20, torch.Generator(device=dev).manual_seed(2131),
+               TRAIN_MLA_FLASH, clocks=False)
+    torch.cuda.empty_cache()
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -4781,7 +5135,8 @@ def main() -> int:
         "control plane too; control: phase 18's drills with kernels; "
         "train_smollm_resume: phase 18's two run_plain runs; serve_lm: phase "
         "19's prefills and decode steps; train_xlstm: phase 20's xLSTM "
-        "runs, no kernel; remat: phase 20's SmolLM steps): "
+        "runs, no kernel; remat: phase 20's SmolLM steps; "
+        "train_deepseek_mtp: phase 21's run_plain): "
         + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
@@ -4791,7 +5146,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm, 'xlstm': xlstm})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm, 'xlstm': xlstm, 'train_deepseek_mtp': deepseek})}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -32,7 +32,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router: str = "softmax"  # 'softmax' | 'sigmoid' (DeepSeek aux-free)
     impl: str = "gather"  # 'gather'; 'ep_a2a' (expert-parallel
-    # all-to-all dispatch) is not ported yet (ROADMAP.md §A8.3)
+    # all-to-all dispatch, `distributed.moe_ep`, where a mesh is set)
 
 
 @dataclasses.dataclass(frozen=True)

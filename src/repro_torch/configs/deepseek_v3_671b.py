@@ -4,7 +4,7 @@
 v_head 128, 128 heads); FFN: first 3 layers dense (d_ff 18432), the rest
 MoE with 1 shared + 256 routed experts (top-8, sigmoid router with aux-free
 bias balancing), expert d_ff 2048. Vocab 129280. The reference provides
-MTP as an optional extra head (not ported yet: ROADMAP.md §A8). Full
+MTP as an optional extra head (``mtp=True``: `models.model.lm_loss`). Full
 attention (compressed cache, but per-step decode is still O(context)).
 
 d_ff 2048 is the MoE expert width; the dense d_ff of the first three

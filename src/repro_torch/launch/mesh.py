@@ -1,4 +1,5 @@
-"""Process groups for the sharded engine (`engine.sharded`).
+"""Process groups for the sharded engine (`engine.sharded`) and the
+expert-parallel MoE (`distributed.moe_ep`).
 
 The counterpart of `repro.launch.mesh.make_engine_mesh`: where the
 reference builds a one-axis device mesh for one program, the port runs
@@ -11,6 +12,11 @@ one process a rank. Three ways in:
     and returns every rank's result (the tests and ``chip_smoke.py``);
   * a group the caller already has: ``make_engine(..., mesh=group)``.
 
+A mesh of named axes over the ranks (the reference's ``jax.make_mesh``
+for one program) is `make_process_mesh`: ``make_process_mesh((2, 2),
+("data", "model"))`` on every rank of a 4-rank group gives each rank its
+coordinates and the groups of its row and column.
+
 The collective backend is always the caller's choice; nothing here picks
 one or falls back to another.
 
@@ -22,12 +28,15 @@ one or falls back to another.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import queue
 import tempfile
 import time
 import traceback
 from datetime import timedelta
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,6 +60,57 @@ def make_engine_group(n_shards: int = 0):
     if k == world:
         return dist.group.WORLD
     return dist.new_group(list(range(k)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """A device mesh as process groups (`make_process_mesh`): the axes'
+    names and sizes, this rank's coordinate along each, and along each
+    the group of the ranks that differ from this one on that axis only."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    groups: Tuple[Any, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def index(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    def group(self, axis: str):
+        return self.groups[self.axis_names.index(axis)]
+
+
+def make_process_mesh(shape, axis_names=("data", "model"), ranks=None):
+    """`ranks` (default: every rank of the default group, in order) laid
+    out row-major on a mesh of `shape` (the last axis fastest: the i-th
+    rank at d * model + m on ("data", "model"), as ``jax.make_mesh``
+    lays out devices in order). Every rank of the default group must
+    call this alike: it makes every axis line's group (`dist.new_group`).
+    A rank outside `ranks` gets None."""
+    shape = tuple(int(n) for n in shape)
+    ranks = list(range(dist.get_world_size())) if ranks is None \
+        else [int(r) for r in ranks]
+    if len(shape) != len(axis_names) or math.prod(shape) != len(ranks):
+        raise ValueError(f"mesh {shape} over {tuple(axis_names)} does not "
+                         f"lay out {len(ranks)} ranks")
+    rank = dist.get_rank()
+    grid = torch.tensor(ranks).view(shape)
+    groups = []
+    for a, n in enumerate(shape):
+        mine = None
+        for line in grid.movedim(a, -1).reshape(-1, n).tolist():
+            g = dist.new_group(line)
+            if rank in line:
+                mine = g
+        groups.append(mine)
+    if rank not in ranks:
+        return None
+    coords = tuple(int(i) for i in torch.nonzero(grid == rank)[0])
+    return ProcessMesh(tuple(axis_names), shape, coords, tuple(groups))
 
 
 def init_from_env(backend: str = "nccl", device=None) -> torch.device:

@@ -18,16 +18,20 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
     """step(params, opt_state, tokens, targets, frontend_embeds=None) ->
     (params, opt_state, metrics): the loss and its gradient, then one
     AdamW update in place. The schedule is read at the step count before
-    the increment."""
+    the increment. A leaf the loss does not reach (a MoE's
+    ``router_bias``, which only picks experts) gets a zero gradient, as
+    the reference's."""
     sched = schedules.get(schedule)
 
     def train_step(params, opt_state, tokens, targets, frontend_embeds=None):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss = lm_loss(live, cfg, tokens, targets, frontend_embeds)
-            grads = torch.autograd.grad(loss, leaves(live))
-        del live
-        grads = unflatten(params, grads)
+            flat = leaves(live)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = unflatten(params, [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(flat, grads)])
+        del live, flat
         scale = sched(opt_state["count"], total_steps)
         params, opt_state, metrics = apply_update(params, grads, opt_state,
                                                   opt, scale)

@@ -11,7 +11,8 @@ float32 in a bfloat16 model: the MoE's ``router_bias``, the mLSTM's
 ``b_if``, the sLSTM's ``b_gates``, and every xLSTM state in a decode
 cache (an mLSTM's ``C`` / ``n`` / ``m``, an sLSTM's ``c`` / ``n`` /
 ``h`` / ``m``). An FFN-less block ('none') has no ``norm2`` / ``ffn``
-on either side.
+on either side. The MTP head's ``mtp`` tree holds one block unstacked on
+both sides.
 """
 from __future__ import annotations
 
@@ -58,8 +59,9 @@ def _segments_to_numpy(segs, layout):
 
 
 # the optional top-level leaves: an untied head, the encoder's final norm,
-# the frontend's projection (the encoder's segments are laid out apart)
-_EXTRA = ("lm_head", "enc_final_norm", "frontend_proj")
+# the frontend's projection, the MTP head (the encoder's segments are
+# laid out apart)
+_EXTRA = ("lm_head", "enc_final_norm", "frontend_proj", "mtp")
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -71,7 +73,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     ``kv_norm`` and the MoE's ``router``, ``router_bias``, expert
     stacks, ``shared`` expert and Arctic's ``ffn_dense`` among them, and
     so do an untied ``lm_head``, the encoder's ``enc_segments`` and
-    ``enc_final_norm`` and a ``frontend_proj``."""
+    ``enc_final_norm``, a ``frontend_proj`` and the MTP head's ``mtp``."""
     conv = lambda a: _to_torch(
         a if isinstance(a, torch.Tensor) else np.asarray(a), device)
     out = {"embed": conv(tree["embed"]),
@@ -99,6 +101,19 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
     out.update({k: tree_map(_to_numpy, params[k]) for k in _EXTRA
                 if k in params})
     return out
+
+
+def train_state_to_numpy(params: Dict[str, Any], opt_state: Dict[str, Any],
+                         cfg: ModelConfig) -> Dict[str, Any]:
+    """The tree the reference's `run_plain` checkpoints, ``{"params":
+    params, "opt": {"count", "m", "v"}}``, from the port's parameters and
+    AdamW state, in the reference's layout as numpy (the step count a 0-d
+    int32): what its `CheckpointManager` restores, and
+    `train_state_from_checkpoint` reads back."""
+    return {"params": params_to_numpy(params, cfg),
+            "opt": {"count": np.asarray(opt_state["count"], np.int32),
+                    "m": params_to_numpy(opt_state["m"], cfg),
+                    "v": params_to_numpy(opt_state["v"], cfg)}}
 
 
 def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

@@ -23,8 +23,10 @@ Llama-3.2-Vision-11B).
   * mixture of experts (the reference's 'gather' implementation): a
     softmax or sigmoid (+ selection bias) router, top-k with ties to the
     lower expert, static capacity with an overflow bin, the expert
-    SwiGLU in float32 a chunk of experts at a time, the gated combine and
-    an optional shared expert; `moe_load_stats`;
+    SwiGLU in float32 a chunk of experts at a time (`expert_swiglu`),
+    the gated combine and an optional shared expert; `moe_load_stats`;
+    with ``impl="ep_a2a"`` and a mesh set, the expert-parallel
+    all-to-all dispatch (`distributed.moe_ep`);
   * the RG-LRU recurrent block (Griffin), through the `rglru_scan` kernel
     over a sequence, with its (h, conv history) state for decode;
   * the xLSTM mixers, plain PyTorch as the reference's XLA: the mLSTM
@@ -38,9 +40,6 @@ Weights keep the reference's (in, out) layout, so a projection is
 (cuBLAS and the CPU's bf16 GEMM accumulate in float32 and round the
 output, as the reference's ``preferred_element_type`` + cast does);
 norms, softmax and gates in float32.
-
-Not ported yet (ROADMAP.md §A8): the expert-parallel MoE dispatch
-(``impl="ep_a2a"``), which raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -421,70 +420,78 @@ def top_k(x: torch.Tensor, k: int):
     return val[..., :k], idx[..., :k]
 
 
-def _router_scores(p: Params, xt: torch.Tensor, cfg) -> torch.Tensor:
-    """float32 router scores (T, E): sigmoid or softmax of the logits,
-    which round to the activation dtype first (the reference's
-    `matmul`)."""
-    logits = matmul(xt, p["router"]).float()
+def router_scores(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """float32 router scores (T, E) of float32 logits: sigmoid or
+    softmax."""
     if cfg.moe.router == "sigmoid":
         return torch.sigmoid(logits)
     return torch.softmax(logits, dim=-1)
 
 
+def _router_scores(p: Params, xt: torch.Tensor, cfg) -> torch.Tensor:
+    """`router_scores` of the logits rounded to the activation dtype
+    first (the reference's `matmul`)."""
+    return router_scores(matmul(xt, p["router"]).float(), cfg)
+
+
+def pick_experts(p: Params, scores: torch.Tensor, cfg):
+    """(experts (T, k) int64, gate weights (T, k) float32) of router
+    scores (T, E): the sigmoid router adds ``router_bias`` to pick the
+    experts only and renormalises the picked scores; the softmax router
+    picks by its scores."""
+    mo = cfg.moe
+    sel = scores + p["router_bias"][None, :] if mo.router == "sigmoid" \
+        else scores
+    _, tope = top_k(sel, mo.top_k)
+    gatew = torch.gather(scores, -1, tope)  # the weights without the bias
+    if mo.router == "sigmoid":
+        gatew = gatew / torch.clamp(gatew.sum(-1, keepdim=True), min=1e-9)
+    return tope, gatew
+
+
+def queue_slots(ids: torch.Tensor, n: int, valid=None) -> torch.Tensor:
+    """Each entry's place in its queue: how many earlier entries have its
+    id, one of [0, n) (the exclusive one-hot prefix count); entries not
+    `valid` (int32 0 / 1) count for nobody."""
+    oh = F.one_hot(ids, n).to(torch.int32)
+    if valid is not None:
+        oh = oh * valid[:, None]
+    before = torch.cumsum(oh, 0, dtype=torch.int32) - oh
+    return torch.gather(before, 1, ids[:, None])[:, 0]
+
+
+def pack_rows(rows: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """rows (N, ...) scattered to rows `idx` of n zero rows; an index of n
+    (a dropped row) lands in an overflow row, discarded."""
+    buf = rows.new_zeros((n + 1,) + rows.shape[1:])
+    return buf.index_copy_(0, idx, rows)[:-1]
+
+
 def moe_route(p: Params, xt: torch.Tensor, cfg):
     """The routing of tokens xt (T, d): (experts (T, k) int64, gate
     weights (T, k) float32, keep (T * k,) bool, buffer rows (T * k,)
-    int64, capacity). The sigmoid router adds ``router_bias`` to pick
-    the experts only and renormalises the picked scores; the softmax
-    router picks by its scores. Each expert takes at most ``cap =
+    int64, capacity) (`pick_experts`). Each expert takes at most ``cap =
     int(T k / E * capacity_factor) + 1`` (token, slot) pairs, in
     token-major (t, slot) order; a pair past it is dropped (keep False)
     and its buffer row is the overflow bin E * cap."""
     mo = cfg.moe
     e, k = mo.n_experts, mo.top_k
-    scores = _router_scores(p, xt, cfg)
-    sel = scores + p["router_bias"][None, :] if mo.router == "sigmoid" \
-        else scores
-    _, tope = top_k(sel, k)
-    gatew = torch.gather(scores, -1, tope)  # the weights without the bias
-    if mo.router == "sigmoid":
-        gatew = gatew / torch.clamp(gatew.sum(-1, keepdim=True), min=1e-9)
+    tope, gatew = pick_experts(p, _router_scores(p, xt, cfg), cfg)
     cap = int(xt.shape[0] * k / e * mo.capacity_factor) + 1
     flat_e = tope.reshape(-1)
-    onehot = F.one_hot(flat_e, e).to(torch.int32)  # (T * k, E)
-    before = torch.cumsum(onehot, 0, dtype=torch.int32) - onehot
-    slot = torch.gather(before, 1, flat_e[:, None])[:, 0]
+    slot = queue_slots(flat_e, e)
     keep = slot < cap
     buf_idx = torch.where(keep, flat_e * cap + slot, e * cap)
     return tope, gatew, keep, buf_idx, cap
 
 
-def moe(p: Params, x: torch.Tensor, cfg,
-        routing: Optional[dict] = None) -> torch.Tensor:
-    """Top-k MoE over x (B, S, d) with static capacity and scatter /
-    gather dispatch (`moe_route`): the kept (token, slot) copies scatter
-    into an (E, cap, d) buffer, each expert's SwiGLU runs on its rows in
-    float32 (bf16 operands widened a chunk of experts at a time, never a
-    whole stack: `EXPERT_CHUNK_BYTES`), the results cast to x's dtype
-    gather back, weighted by their gates and summed per token; a dropped
-    pair adds nothing (the residual passes through). Plus the shared
-    expert's MLP when the config has one. With `routing`, a dict, the
-    experts each token picked ("experts", (B, S, k)) and which of its
-    pairs were kept ("keep", (B, S, k)) are written into it."""
-    mo = cfg.moe
-    if mo.impl != "gather":
-        raise NotImplementedError(f"MoE impl {mo.impl!r} is {NOT_PORTED}")
-    b, s, d = x.shape
-    t, e, k = b * s, mo.n_experts, mo.top_k
-    xt = x.reshape(t, d)
-    tope, gatew, keep, buf_idx, cap = moe_route(p, xt, cfg)
-    if routing is not None:
-        routing.update(experts=tope.view(b, s, k), keep=keep.view(b, s, k))
-    tok = torch.arange(t * k, device=x.device) // k
-    # the dropped pairs all land in the overflow bin, which is discarded
-    buf = x.new_zeros((e * cap + 1, d)).index_copy_(0, buf_idx, xt[tok])
-    xb = buf[:-1].view(e, cap, d)
-    out = x.new_empty((e, cap, d))
+def expert_swiglu(p: Params, xb: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its rows xb (E, C, d), E the experts of
+    ``p``'s stacks, in float32 (bf16 operands widened a chunk of experts
+    at a time, never a whole stack: `EXPERT_CHUNK_BYTES`), cast to xb's
+    dtype: (E, C, d)."""
+    e = xb.shape[0]
+    out = xb.new_empty(xb.shape)
     per = 4 * sum(p[n][0].numel() for n in ("w_gate", "w_up", "w_down"))
     step = max(1, EXPERT_CHUNK_BYTES // per)
     for e0 in range(0, e, step):
@@ -492,7 +499,46 @@ def moe(p: Params, x: torch.Tensor, cfg,
         xe = xb[c].float()
         up = torch.bmm(xe, p["w_up"][c].float())
         h = F.silu(torch.bmm(xe, p["w_gate"][c].float())) * up
-        out[c] = torch.bmm(h, p["w_down"][c].float()).to(x.dtype)
+        out[c] = torch.bmm(h, p["w_down"][c].float()).to(xb.dtype)
+    return out
+
+
+def moe(p: Params, x: torch.Tensor, cfg,
+        routing: Optional[dict] = None) -> torch.Tensor:
+    """Top-k MoE over x (B, S, d) with static capacity and scatter /
+    gather dispatch (`moe_route`): the kept (token, slot) copies scatter
+    into an (E, cap, d) buffer, each expert's SwiGLU runs on its rows
+    (`expert_swiglu`), the results gather back, weighted by their gates
+    and summed per token; a dropped pair adds nothing (the residual
+    passes through). Plus the shared expert's MLP when the config has
+    one. With `routing`, a dict, the experts each token picked
+    ("experts", (B, S, k)) and which of its pairs were kept ("keep", (B,
+    S, k)) are written into it.
+
+    ``impl="ep_a2a"`` follows the reference's rule
+    (src/repro/models/layers.py:390-402): with a mesh set
+    (`distributed.moe_ep.set_moe_mesh`) and at least one of this rank's
+    tokens per expert rank, the expert-parallel dispatch `moe_ep` (x is
+    the rank's own token shard); otherwise (no mesh, or a decode batch
+    smaller than the expert group) this gather implementation."""
+    mo = cfg.moe
+    if mo.impl == "ep_a2a":
+        from repro_torch.distributed import moe_ep as EP
+
+        mesh, ax = EP.current_moe_mesh()
+        if mesh is not None and x.shape[0] * x.shape[1] >= mesh.shape[ax]:
+            return EP.moe_ep(p, x, cfg, routing)
+    elif mo.impl != "gather":
+        raise ValueError(f"MoE impl {mo.impl!r}; want 'gather' or 'ep_a2a'")
+    b, s, d = x.shape
+    t, e, k = b * s, mo.n_experts, mo.top_k
+    xt = x.reshape(t, d)
+    tope, gatew, keep, buf_idx, cap = moe_route(p, xt, cfg)
+    if routing is not None:
+        routing.update(experts=tope.view(b, s, k), keep=keep.view(b, s, k))
+    tok = torch.arange(t * k, device=x.device) // k
+    out = expert_swiglu(p, pack_rows(xt[tok], buf_idx, e * cap).view(
+        e, cap, d))
     y = out.view(e * cap, d)[torch.clamp(buf_idx, max=e * cap - 1)]
     y = torch.where(keep[:, None], y, 0.0)
     y = y * gatew.reshape(-1)[:, None].to(x.dtype)

@@ -10,7 +10,10 @@ each period's blocks are their own tensors and `_run_segments` loops
 over them); an untied head adds ``"lm_head"`` (d, V), an encoder
 ``"enc_segments"`` (laid out by ``cfg.enc_segments()``) and
 ``"enc_final_norm"``, a frontend narrower or wider than the model
-``"frontend_proj"`` (frontend_dim, d). `convert.params_from_jax` maps
+``"frontend_proj"`` (frontend_dim, d), and DeepSeek-V3's multi-token
+prediction head (``cfg.mtp``) ``"mtp"``: ``{"proj" (2d, d), "norm_h",
+"norm_e", "block"}``, one unstacked block of the pattern's last kind.
+`convert.params_from_jax` maps
 the reference's tree onto this one. A decode cache has the same layout:
 ``{"pos": 0-d int32 on the device, "segments": [[(block cache, ...) per
 period] per segment]}``, mapped by `convert.cache_from_jax` /
@@ -41,8 +44,9 @@ frontend stubs, untied heads, sinusoidal positions, and
 rematerialisation (``cfg.remat``: `_run_segments`). An xLSTM block's
 decode cache is its recurrent state, float32 in any model dtype: an
 mLSTM's ``{"C": (B, H, dh, dh), "n": (B, H, dh), "m": (B, H)}``, an
-sLSTM's ``{"c", "n", "h", "m"}`` (B, d each). MTP raises
-`NotImplementedError` (ROADMAP.md §A8).
+sLSTM's ``{"c", "n", "h", "m"}`` (B, d each). MTP (depth 1) adds its
+loss to `lm_loss`; `forward`, the prefill and `decode_step` leave the
+head unused, as the reference's do.
 """
 from __future__ import annotations
 
@@ -74,8 +78,6 @@ def _check_ported(cfg: ModelConfig) -> None:
                     f"block {bd} is {L.NOT_PORTED}")
     if cfg.norm not in L.NORMS:
         raise NotImplementedError(f"norm {cfg.norm!r} is {L.NOT_PORTED}")
-    if cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: MTP is {L.NOT_PORTED}")
     if cfg.remat not in REMATS:
         raise ValueError(f"remat={cfg.remat!r}; want one of {REMATS}")
 
@@ -137,6 +139,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if cfg.frontend and cfg.frontend_dim and cfg.frontend_dim != d:
         p["frontend_proj"] = L._normal(gen, (cfg.frontend_dim, d),
                                        cfg.frontend_dim ** -0.5, dtype)
+    if cfg.mtp:
+        # DeepSeek-V3's MTP (depth 1): RMSNorm(h) ++ RMSNorm(emb(next)) ->
+        # proj -> one more block -> the shared head predicts token t + 2
+        norm = lambda: L.init_norm(d, cfg.norm, dtype, gen.device)
+        p["mtp"] = {"proj": L._normal(gen, (2 * d, d), (2 * d) ** -0.5,
+                                      dtype),
+                    "norm_h": norm(), "norm_e": norm(),
+                    "block": _init_block(gen, cfg.pattern[-1], cfg, dtype)}
     return p
 
 
@@ -443,6 +453,20 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend_embeds=None, prefill_len: Optional[int] = None):
+    """The decoder stack over tokens (B, S): (its embedded input x, its
+    output h before ``final_norm``, the prefill caches or None, the
+    positions, the cross-attention memory)."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, cfg, tokens, positions)
+    memory = _memory(params, cfg, frontend_embeds)
+    h, caches = _run_segments(params["segments"], cfg.segments(), x, cfg,
+                              positions, prefill_len=prefill_len,
+                              memory=memory)
+    return x, h, caches, positions, memory
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds=None, mode: str = "train",
             cache_len: Optional[int] = None):
@@ -456,17 +480,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"forward mode {mode!r}")
     if mode == "prefill" and cache_len is None:
         raise ValueError("a prefill needs cache_len")
-    s = tokens.shape[1]
-    positions = torch.arange(s, device=tokens.device)
-    x, caches = _run_segments(
-        params["segments"], cfg.segments(),
-        _embed(params, cfg, tokens, positions), cfg, positions,
-        prefill_len=cache_len if mode == "prefill" else None,
-        memory=_memory(params, cfg, frontend_embeds))
-    logits = _logits(params, cfg, x)
+    _, h, caches, _, _ = _trunk(params, cfg, tokens, frontend_embeds,
+                                cache_len if mode == "prefill" else None)
+    logits = _logits(params, cfg, h)
     if mode == "train":
         return logits
-    pos = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+    pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                       device=tokens.device)
     return logits, {"pos": pos, "segments": caches}
 
 
@@ -507,6 +527,22 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor, z_loss: float):
 def lm_loss(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             targets: torch.Tensor, frontend_embeds=None,
             z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean next-token cross-entropy (+ z-loss) over targets >= 0."""
-    return _ce(forward(params, cfg, tokens, frontend_embeds), targets,
-               z_loss)
+    """Mean next-token cross-entropy (+ z-loss) over targets >= 0; with
+    ``cfg.mtp`` and an ``"mtp"`` head, plus ``cfg.mtp_weight`` times the
+    head's: token t + 2 predicted at position t from the trunk's h_t and
+    the embedding of token t + 1 (src/repro/models/model.py:544-556)."""
+    _check_ported(cfg)
+    x, h, _, positions, memory = _trunk(params, cfg, tokens,
+                                        frontend_embeds)
+    loss = _ce(_logits(params, cfg, h), targets, z_loss)
+    if cfg.mtp and "mtp" in params:
+        mp = params["mtp"]
+        z = torch.cat([L.apply_norm(h[:, :-1], mp["norm_h"], cfg.norm),
+                       L.apply_norm(x[:, 1:], mp["norm_e"], cfg.norm)], -1)
+        z, _ = _apply_block(cfg.pattern[-1], mp["block"],
+                            L.matmul(z, mp["proj"]), cfg, positions[:-1],
+                            memory=memory)
+        # targets[:, 1:] padded with -1, cut to S - 1: the pad never shows
+        loss = loss + cfg.mtp_weight * _ce(_logits(params, cfg, z),
+                                           targets[:, 1:], z_loss)
+    return loss

@@ -1028,6 +1028,44 @@ def test_moe_smoke_models_kernels_match_plain(cuda, arch):
         assert rel(a, b) <= 1e-4
 
 
+def test_mtp_training_kernels_match_plain(cuda):
+    """DeepSeek's smoke config with its MTP head (float32) on the card:
+    `lm_loss` and every gradient with the kernels against the same with
+    their plain versions (loss within 1e-5, each gradient within 1e-4
+    relative, max |a - b| / max |b|); the flash forward launched once a
+    layer and once for the head's block, over S - 1 = 40 positions."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v3-671b"), mtp=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    params = M.init_params(cfg, 4, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (2, 41), device=cuda,
+                        generator=gen)
+    tgt = torch.roll(tok, -1, 1)
+    tgt[:, -1] = -1
+    runs = []
+    for c in (cfg, plain):
+        reset_launches()
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = M.lm_loss(live, c, tok, tgt)
+        grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
+        torch.cuda.synchronize()
+        runs.append((loss.item(), grads,
+                     launch_counts()["flash_attention_fwd"]))
+    (loss, grads, n), (want, want_g, n_plain) = runs
+    assert n == cfg.num_layers + 1 and n_plain == 0
+    assert abs(loss - want) <= 1e-5 * abs(want)
+    for a, b in zip(grads, want_g):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
 @pytest.mark.parametrize("s", [1024, 2048])
 def test_mlstm_chunked_matches_quadratic_at_full_width(cuda, s):
     """One mLSTM block of xLSTM-350M at full width (d 1,024, 4 heads of

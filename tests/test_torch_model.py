@@ -137,8 +137,9 @@ def test_schedules_match_reference(kind):
 
 def test_registry_matches_reference_and_names_what_is_not_ported():
     """Every registry id resolves (xLSTM-350M was the last) to the
-    reference's configs; what is still not ported, MTP, names ROADMAP.md
-    §A8, and an unknown id raises KeyError."""
+    reference's configs; DeepSeek-V3's MTP head initialises (its ``mtp``
+    tree); a block kind the port lacks names ROADMAP.md §A8, and an
+    unknown id raises KeyError."""
     assert registry.ARCH_IDS == r_registry.ARCH_IDS
     for arch in registry.ARCH_IDS:
         for get, rget in ((registry.get_config, r_registry.get_config),
@@ -150,10 +151,14 @@ def test_registry_matches_reference_and_names_what_is_not_ported():
             segs = lambda c: [([dataclasses.astuple(bd) for bd in pat], n)
                               for pat, n in c.segments()]
             assert segs(get(arch)) == segs(rget(arch))
-    mtp = dataclasses.replace(registry.get_smoke_config("deepseek-v3-671b"),
-                              mtp=True)
+    smoke = registry.get_smoke_config("deepseek-v3-671b")
+    mtp = dataclasses.replace(smoke, mtp=True)
+    assert sorted(init_params(mtp, 0, "cpu")["mtp"]) == [
+        "block", "norm_e", "norm_h", "proj"]
+    other = dataclasses.replace(smoke, pattern=(
+        dataclasses.replace(smoke.pattern[0], mixer="ssm"),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A8"):
-        init_params(mtp, 0, "cpu")
+        init_params(other, 0, "cpu")
     with pytest.raises(KeyError):
         registry.get_config("xlstm-1b")
 

@@ -128,7 +128,9 @@ def test_configs_are_the_reference_s():
     """Full and smoke configs field for field (MoEConfig and MLAConfig
     too; the port's `use_kernels` for the reference's `use_pallas`) and
     their segments (DeepSeek's leading dense layers); the full configs'
-    widths as published; DeepSeek's MTP head still raises."""
+    widths as published; with ``mtp``, `init_params` gives the
+    reference's ``"mtp"`` tree (``proj``, ``norm_h``, ``norm_e`` and a
+    MoE MLA block), structure and shapes."""
     for arch in ARCHS:
         for get, rget in ((registry.get_config, r_registry.get_config),
                           (registry.get_smoke_config,
@@ -153,8 +155,17 @@ def test_configs_are_the_reference_s():
             ar.moe.router, ar.pattern[0].ffn) == (
         35, 7168, 56, 8, 4864, 128, 2, 4864, "softmax", "dense_moe")
     mtp = dataclasses.replace(registry.get_smoke_config(ARCHS[0]), mtp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A8"):
-        M.init_params(mtp, 0, "cpu")
+    rmtp = dataclasses.replace(r_registry.get_smoke_config(ARCHS[0]),
+                               mtp=True)
+    got = params_to_numpy(M.init_params(mtp, 0, "cpu"), mtp)["mtp"]
+    want = jax.eval_shape(
+        lambda: R.init_params(rmtp, jax.random.PRNGKey(0)))["mtp"]
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    assert [a.shape for a in jax.tree.leaves(got)] == \
+        [a.shape for a in jax.tree.leaves(want)]
+    assert got["proj"].shape == (2 * mtp.d_model, mtp.d_model)
+    assert {"mixer", "ffn"} <= set(got["block"])
+    assert "shared" in got["block"]["ffn"]
 
 
 # (B, Hq, Hkv, S, Dqk, Dv, causal): MLA's smoke and full widths
@@ -497,11 +508,30 @@ def test_params_and_cache_layout_round_trip(arch):
 
 
 def test_expert_parallel_dispatch_still_raises():
-    """The reference's 'ep_a2a' dispatch (expert parallel, ROADMAP.md
-    §A8.3) is not ported: `moe` names it."""
-    cfg = registry.get_smoke_config("arctic-480b")
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                           impl="ep_a2a"))
-    _, _, blk = block_of("arctic-480b", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A8"):
-        L.moe(blk["ffn"], torch.zeros((1, 4, cfg.d_model)), cfg)
+    """The reference's 'ep_a2a' dispatch with no mesh set falls back to
+    its gather implementation (src/repro/models/layers.py:390-402), and
+    so does the port's `moe`: on both routers the port's 'ep_a2a' output
+    is its 'gather' output bit for bit, the reference's likewise, and
+    the two agree within 5e-4 with the same experts picked and pairs
+    kept, exactly (`moe_route` against the reference's routing).
+    tests/test_torch_moe_ep.py holds the dispatch on a mesh."""
+    for arch in ARCHS:
+        _, rblk, blk = block_of(arch, 1 if arch.startswith("deepseek") else 0)
+        ep = lambda c: dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, impl="ep_a2a"))
+        rcfg = r_registry.get_smoke_config(arch)
+        cfg = registry.get_smoke_config(arch)
+        x = tokens_x(cfg, 2, 24, 71)
+        got = L.moe(blk["ffn"], torch.from_numpy(x), ep(cfg))
+        assert torch.equal(got, L.moe(blk["ffn"], torch.from_numpy(x), cfg))
+        want = RL.moe(rblk["ffn"], jnp.asarray(x), ep(rcfg))
+        np.testing.assert_array_equal(
+            np.asarray(want), np.asarray(RL.moe(rblk["ffn"], jnp.asarray(x),
+                                                rcfg)))
+        assert rel_err(got.numpy(), want) <= F32_BOUND
+        want_e, want_keep = reference_routing(rblk["ffn"], jnp.asarray(x),
+                                              rcfg)
+        tope, _, keep, _, _ = L.moe_route(
+            blk["ffn"], torch.from_numpy(x).reshape(-1, cfg.d_model), cfg)
+        np.testing.assert_array_equal(tope.numpy(), want_e)
+        np.testing.assert_array_equal(keep.numpy(), want_keep)
