@@ -239,6 +239,24 @@ before phase 18:
      job: one MoE layer of this cell's widths in float32 against the
      gather implementation at capacity factor 8, forward and backward
      within 1e-4, the bf16 routers' top-k flips reported;
+ 22. the sharding plan and the gossip baseline: gossip
+     (`distributed.gossip_sync`) on SmolLM-135M at full width in bf16,
+     4 pods stacked (one seed each): round 0 bit for bit the CPU's, one
+     round's device ms beside its bound (3 G P bytes at the HBM rate),
+     the agreement error over log2 G = 2 rounds; the plan's train step
+     (SmolLM-135M, 4 x 2,048, every parameter, AdamW moment and input a
+     DTensor placed by `distributed.sharding` on a (1, 1) ("data",
+     "model") mesh, NCCL at world 1, in a spawned job) against the plain
+     `make_train_step` step from the same weights and batch: loss and
+     every parameter bit for bit, `flash_attention_fwd` launched under
+     the plan (path `train_plan`), step ms placed and plain; and the dry
+     run (`launch.dryrun`, meta tensors under a fake group, in a CPU
+     process started beside phase 17's jobs): SmolLM-135M, Gemma-7B,
+     MiniCPM-2B and Command-R-35B at train_4k, prefill_32k and
+     decode_32k on 16 x 16, SmolLM-135M's train_4k on 2 x 16 x 16, each
+     OK, its memory a device against the card's 80 GB, FLOPs,
+     collective bytes and its roofline row at the H100's datasheet rates
+     (computed: no time is measured there);
  11. checks the launch counts of each driven path, read with the counts
      reset just before it and read just after (phase 3's run without the
      threshold kernel, phases 3 and 14's L2 at D = 9, phases 4-5, phases 6-7,
@@ -246,7 +264,8 @@ before phase 18:
      schedule, phase 15's batched engines, phase 16, phase 17's ranks,
      summed, phase 18's kernels-on drills, phase 18's two trainer runs,
      phase 19's prefills and decode steps, phase 20's xLSTM runs (no
-     kernel) and its SmolLM remat steps, phase 21's DeepSeek-V3 run):
+     kernel) and its SmolLM remat steps, phase 21's DeepSeek-V3 run,
+     phase 22's placed step):
      every kernel the
      path runs launched at least once, every other kernel never
      (`due_dedup` never on the armed paths: an armed engine elects with
@@ -346,6 +365,9 @@ PATH_KERNELS = {
     # phase 21: DeepSeek-V3 + MTP's run_plain (MLA's flash forward thrice
     # a step; the MoE's dispatch and the backward are plain PyTorch)
     "train_deepseek_mtp": {"flash_attention_fwd"},
+    # phase 22: SmolLM-135M's train step with every leaf placed by the
+    # sharding plan (attention on each rank's heads through local_map)
+    "train_plan": {"flash_attention_fwd"},
 }
 MAIN_PATH = {"stage_rows": "majority", "threshold_step": "majority",
              "due_dedup": "majority", "descent_tail": "majority",
@@ -4863,6 +4885,275 @@ def phase_train_deepseek_mtp(dev, steps: int = 3, batch: int = 1,
     return fig, counts
 
 
+# -- phase 22: the sharding plan, the gossip baseline and the dry run ----------
+
+# the dry run's required cells: the four dense decoders at train_4k,
+# prefill_32k and decode_32k on 16 x 16, and SmolLM-135M's train_4k on
+# 2 x 16 x 16
+DRYRUN_ARCHS = ("smollm-135m", "gemma-7b", "minicpm-2b", "command-r-35b")
+DRYRUN_CELLS = tuple((a, s, False) for a in DRYRUN_ARCHS
+                     for s in ("train_4k", "prefill_32k", "decode_32k")) \
+    + (("smollm-135m", "train_4k", True),)
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun_phase22")
+CARD_GB = 80.0
+
+
+def start_dryrun(cells=DRYRUN_CELLS, out: str = DRYRUN_DIR):
+    """The dry run (`launch.dryrun.run_cells`) of `cells` in a CPU
+    process of its own (no card: it runs on meta tensors under a fake
+    group), at a lower priority beside the checks that time nothing;
+    each record is written to `out`, its output to out/log.txt."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    code = ("import os; os.nice(10)\n"
+            "import torch; torch.set_num_threads(1)\n"
+            "from repro_torch.launch import dryrun\n"
+            f"dryrun.run_cells({list(cells)!r}, {out!r})\n")
+    import atexit
+
+    logf = open(os.path.join(out, "log.txt"), "w")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=logf,
+                            stderr=subprocess.STDOUT, env=env, cwd=HERE)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun(proc, cells=DRYRUN_CELLS, out: str = DRYRUN_DIR,
+                  timeout: float = 900.0) -> dict:
+    """Waits for `start_dryrun`'s process; every cell must be OK. Logs
+    each cell's per-device memory against the card's 80 GB, its FLOPs and
+    collective bytes (computed on meta tensors, no time measured) and
+    its roofline row at the H100's datasheet rates. Returns the rows."""
+    from repro_torch.analysis.roofline import roofline_row
+    from repro_torch.launch.dryrun import tag
+
+    rc = proc.wait(timeout=timeout)
+    with open(os.path.join(out, "log.txt")) as f:
+        tail = f.read()[-4000:]
+    assert rc == 0, f"the dry run exited {rc}:\n{tail}"
+    rows = {}
+    for arch, shape, mp in cells:
+        t = tag({"arch": arch, "shape": shape, "multi_pod": mp})
+        with open(os.path.join(out, t + ".json")) as f:
+            rec = json.load(f)
+        assert rec["status"] == "OK", f"dry run {t}: {rec}"
+        row = roofline_row(rec)
+        gb = rec["memory"]["bytes_per_device"] / 1e9
+        rows[t] = {"mem_gb": gb, "args_gb": rec["memory"]["args"] / 1e9,
+                   "temp_gb": rec["memory"]["temp"] / 1e9,
+                   "flops": rec["cost"]["flops"],
+                   "bytes": rec["cost"]["bytes_accessed"],
+                   "collectives": rec["collectives"], "run_s": rec["run_s"],
+                   **{k: row[k] for k in ("t_compute_s", "t_mem_ops_s",
+                                          "t_mem_kernel_s", "t_collective_s",
+                                          "dominant", "useful_ratio",
+                                          "roofline_mfu")}}
+        r = rows[t]
+        log(f"  dry run {t} ({rec['mesh']}, {rec['n_devices']} ranks; "
+            f"computed, priced at H100 datasheet rates): "
+            f"{gb:.2f} GB a device of {CARD_GB:.0f} (args {r['args_gb']:.2f}"
+            f", temp {r['temp_gb']:.2f}), {r['flops']:.4e} FLOP, "
+            f"{r['bytes']:.4e} B, collectives "
+            f"{json.dumps({k: f'{v:.4e}' for k, v in r['collectives'].items()})}"
+            f"; compute {r['t_compute_s']:.4e} s, memory "
+            f"{r['t_mem_kernel_s']:.4e} s, collective "
+            f"{r['t_collective_s']:.4e} s: {r['dominant']}, useful "
+            f"{r['useful_ratio']:.3f}, roofline MFU "
+            f"{100 * r['roofline_mfu']:.2f} % ({r['run_s']} s on the host)")
+    return rows
+
+
+def phase_gossip(dev, pods: int = 4, smoke: bool = False) -> dict:
+    """The gossip baseline (`distributed.gossip_sync`) on SmolLM-135M at
+    full width in its bf16, `pods` replicas stacked (one seed each):
+    round 0 on the card bit for bit the CPU's; one round's device ms
+    beside its bound, 3 G P bytes (t and t[partner] read, t written) at
+    the HBM rate; log2 G rounds from the start, the agreement error
+    before and after each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.distributed.gossip_sync import (agreement_error,
+                                                     gossip_round)
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = (get_smoke_config if smoke else get_config)("smollm-135m")
+    stacked = tree_map(lambda *ts: torch.stack(ts),
+                       *[init_params(cfg, 100 + g, dev)
+                         for g in range(pods)])
+    n = sum(t[0].numel() for t in leaves(stacked))
+    moved = 3 * pods * sum(t[0].numel() * t.element_size()
+                           for t in leaves(stacked))
+    # the CPU's round 0 in a thread, beside the card's work
+    pool = ThreadPoolExecutor(max_workers=1)
+    want = pool.submit(gossip_round, tree_map(lambda t: t.cpu(), stacked),
+                       0, pods)
+    pool.shutdown(wait=False)
+    got = tree_map(lambda t: t.cpu(), gossip_round(stacked, 0, pods))
+    ms = device_ms(lambda: gossip_round(stacked, 0, pods), dev, 5)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    errs = [float(agreement_error(stacked))]
+    p = stacked
+    rounds = max(pods.bit_length() - 1, 1)
+    for r in range(rounds):
+        p = gossip_round(p, r, pods)
+        errs.append(float(agreement_error(p)))
+    assert errs[-1] < 1e-2 * errs[0], errs
+    for a, b in zip(leaves(got), leaves(want.result())):
+        assert a.dtype == b.dtype == cfg.torch_dtype
+        assert torch.equal(bits(a), bits(b)), \
+            "gossip round 0 on the card differs from the CPU's"
+    out = {"pods": pods, "params_per_pod": n, "bytes_per_round": moved,
+           "round_ms": ms, "bound_ms": bound_ms, "agreement_error": errs,
+           "bit_equal_cpu": True}
+    log(f"  gossip, SmolLM-135M x {pods} pods ({n:,} parameters a pod, "
+        f"{cfg.dtype}): round 0 bit for bit the CPU's; a round "
+        f"{ms:.4f} device ms against its bound {bound_ms:.4f} ms "
+        f"({moved:,} bytes at {HBM_BYTES_PER_S:.3g} B/s); agreement "
+        f"error by round {errs}")
+    return out
+
+
+def plan_job(rank: int, world: int, dev, batch: int, seq: int, steps: int,
+             smoke: bool, go) -> dict:
+    """The sharding plan's train step at world 1 (spawned; a DTensor
+    mesh needs the process's default group): SmolLM-135M's
+    `make_train_step` on its parameters, AdamW state and batch placed by
+    the plan on a (1, 1) ("data", "model") `DeviceMesh`
+    (`sharding.distribute`), against the same step on the plain tensors
+    from the same weights and batch: the loss and every parameter after
+    the step compared bit for bit, `flash_attention_fwd`'s launches in
+    the placed step counted; then `steps` more steps of each timed. It
+    starts (imports, the CUDA context, the mesh) at once and waits for
+    the event `go` before any work on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.wheel import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = make_mesh(1, 1)
+    torch.zeros((), device=dev)
+    assert go.wait(timeout=900), "phase 22 never released the plan's job"
+    cfg = (get_smoke_config if smoke else get_config)("smollm-135m")
+    if smoke:
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = init_params(cfg, 22, dev)
+    rng = np.random.default_rng(22)
+    draw = lambda lo: torch.from_numpy(rng.integers(
+        lo, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(dev)
+    tokens, targets = draw(0), draw(-1)
+    step = make_train_step(cfg, AdamWConfig())
+    pspecs = shd.sanitize(shd.param_specs(cfg), params, mesh)
+    placed = shd.distribute(params, pspecs, mesh)
+    opt = shd.distribute(init_state(params),
+                         shd.opt_state_specs(pspecs, params, mesh), mesh)
+    ins = shd.distribute({"tokens": tokens, "targets": targets},
+                         shd.input_specs_for(cfg, ShapeConfig(
+                             "phase22", "train", seq, batch), mesh), mesh)
+    plain = tree_map(torch.clone, params)
+    plain_opt = init_state(params)
+    del params
+    reset_launches()
+    plain, plain_opt, m1 = step(plain, plain_opt, tokens, targets)
+    sync(dev)
+    plain_counts = launch_counts()
+    reset_launches()
+    placed, opt, m2 = step(placed, opt, ins["tokens"], ins["targets"])
+    sync(dev)
+    counts = launch_counts()
+    loss = m2["loss"].full_tensor()
+    differ, worst = 0, 0.0
+    for a, b in zip(leaves(placed), leaves(plain)):
+        full = a.full_tensor()
+        eq = bits(full) == bits(b)
+        differ += int((~eq).sum())
+        worst = max(worst, float((full.float() - b.float()).abs().max()))
+    timed = {}
+    for name, run in (("plain", lambda: step(plain, plain_opt, tokens,
+                                             targets)),
+                      ("plan", lambda: step(placed, opt, ins["tokens"],
+                                            ins["targets"]))):
+        ms = []
+        for _ in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            run()
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timed[name] = ms
+    return {"loss": [float(m1["loss"]), float(loss)],
+            "loss_bits_equal": bool(torch.equal(bits(loss),
+                                                bits(m1["loss"]))),
+            "grad_norm": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+            "params_differing": differ, "params_max_abs_diff": worst,
+            "n_params": sum(t.numel() for t in leaves(plain)),
+            "plan_counts": counts,
+            "flash_plain": plain_counts["flash_attention_fwd"],
+            "step_ms": timed,
+            "placements": {"embed": str(leaves(placed)[0].placements),
+                           "m_embed": str(leaves(opt["m"])[0].placements)}}
+
+
+def start_plan_step(dev, batch: int = 4, seq: int = 2048, steps: int = 3,
+                    smoke: bool = False):
+    """`plan_job` spawned at world 1 (NCCL on the card, gloo off it),
+    a thread waiting on it; it starts up beside the caller's work and
+    waits for the returned event. Returns (the event, the future of
+    the job's results)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.launch.mesh import spawn
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    go = torch.multiprocessing.get_context("spawn").Event()
+    pool = ThreadPoolExecutor(max_workers=1)
+    fut = pool.submit(spawn, plan_job, 1, backend, str(dev), batch, seq,
+                      steps, smoke, go, timeout=900)
+    pool.shutdown(wait=False)
+    return go, fut
+
+
+def phase_plan_step(dev, started, batch: int = 4, seq: int = 2048):
+    """Releases `start_plan_step`'s job and checks it: the placed step
+    bit for bit the plain one, the flash kernel launched in it. Returns
+    (figures, the placed step's launches)."""
+    go, fut = started
+    go.set()
+    r = fut.result()[0]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    counts = r.pop("plan_counts")
+    plain_ms, plan_ms = (sorted(r["step_ms"][k]) for k in ("plain", "plan"))
+    log(f"  the plan's train step, SmolLM-135M, {batch} x {seq}, on a (1, 1)"
+        f" mesh over {backend} at world 1, against the plain step: loss "
+        f"{r['loss'][1]!r} vs {r['loss'][0]!r} (bits equal: "
+        f"{r['loss_bits_equal']}), grad norm {r['grad_norm']}, "
+        f"{r['params_differing']} of {r['n_params']:,} parameters differ "
+        f"(max |diff| {r['params_max_abs_diff']:.3e}); flash launches "
+        f"{counts['flash_attention_fwd']} placed, {r['flash_plain']} plain;"
+        f" step ms placed {plan_ms} vs plain {plain_ms} (host clock, "
+        f"synchronised); placements {r['placements']}")
+    assert r["loss_bits_equal"] and r["params_differing"] == 0, r
+    if dev.type == "cuda":
+        assert counts["flash_attention_fwd"] > 0, counts
+    return r, counts
+
+
 def main() -> int:
     import torch
 
@@ -5047,6 +5338,9 @@ def main() -> int:
         "majority crash schedule without the threshold kernel (both in a "
         "process of their own)")
     parity = start_parity(dev)
+    log("phase 22's dry run: the sharding plan on meta tensors under a fake "
+        "group of 256 (512) ranks, in a CPU process of its own")
+    dry = start_dryrun()
 
     log("phase 15's parity: kernels-on B-trial engines vs serial engines "
         "at n = 4096")
@@ -5117,6 +5411,17 @@ def main() -> int:
                TRAIN_MLA_FLASH, clocks=False)
     torch.cuda.empty_cache()
 
+    log("phase 22: the sharding plan and the gossip baseline: gossip on "
+        "SmolLM-135M at full width, 4 pods stacked, 2 rounds; the plan's "
+        "train step (SmolLM-135M, 4 x 2048, every leaf a DTensor on a (1, 1) "
+        "mesh, NCCL at world 1) against the plain step; the dry run's cells "
+        "(16 x 16 and 2 x 16 x 16, computed, no time measured)")
+    started = start_plan_step(dev)  # starts up beside the gossip
+    plan = {"gossip": phase_gossip(dev)}
+    torch.cuda.empty_cache()
+    plan["step"], paths["train_plan"] = phase_plan_step(dev, started)
+    plan["dryrun"] = finish_dryrun(dry)
+
     for path, counts in paths.items():
         for name, k in counts.items():
             if name in PATH_KERNELS[path]:
@@ -5136,7 +5441,8 @@ def main() -> int:
         "train_smollm_resume: phase 18's two run_plain runs; serve_lm: phase "
         "19's prefills and decode steps; train_xlstm: phase 20's xLSTM "
         "runs, no kernel; remat: phase 20's SmolLM steps; "
-        "train_deepseek_mtp: phase 21's run_plain): "
+        "train_deepseek_mtp: phase 21's run_plain; train_plan: phase 22's "
+        "placed step): "
         + json.dumps(paths))
     table = []
     for name, (src, rep) in SOURCES.items():
@@ -5146,7 +5452,7 @@ def main() -> int:
                       "launches_by_path": {p: c[name] for p, c in paths.items()
                                            if name in PATH_KERNELS[p]},
                       **rows[name]})
-    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm, 'xlstm': xlstm, 'train_deepseek_mtp': deepseek})}")
+    log(f"summary: {json.dumps({'converge_1e5': conv, 'n_1e6': big_stats, 'problems_1e5': conv_p, 'l2_1e6_churn': big_l2, 'train_rg9b': rg, 'train_smollm_threshold': sm, 'armed': armed, 'l2_d9_1e6': l2_d9, 'batched': sweep, 'serve': {k: v for k, v in serve.items() if k not in ('transition_digests', 'burst_marks', 'settle_cycles', 'settle_ms')}, 'sharded': shard, 'drills': drills, 'resume': resume, 'serve_lm': serve_lm, 'xlstm': xlstm, 'train_deepseek_mtp': deepseek, 'plan': plan})}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

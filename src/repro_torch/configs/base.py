@@ -137,3 +137,26 @@ class ModelConfig:
             segs.append((self.enc_pattern[:rem], 1))
         return tuple(segs)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One benchmark cell: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def sub_quadratic(cfg: ModelConfig) -> bool:
+    """True if every mixer has bounded decode state (runs long_500k)."""
+    bounded = {"swa", "rglru", "mlstm", "slstm"}
+    return all(b.mixer in bounded for b in cfg.pattern) and not cfg.enc_layers

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import ModelConfig, ShapeConfig
 
 ARCH_IDS = (
     "recurrentgemma-9b",
@@ -34,3 +34,32 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell (the
+    reference's ``ShapeDtypeStruct`` tree; nothing is allocated):
+
+    train:   {tokens, targets [, frontend_embeds]}
+    prefill: {tokens [, frontend_embeds]}
+    decode:  {token, cache} (one new token against a seq_len-deep cache)
+    """
+    import torch
+
+    from repro_torch.models.model import make_cache
+
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda n: torch.empty((b, n), dtype=torch.int32, device="meta")
+    out = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = tok(s)
+        if shape.kind == "train":
+            out["targets"] = tok(s)
+        if cfg.frontend:
+            out["frontend_embeds"] = torch.empty(
+                (b, cfg.n_frontend_tokens, cfg.frontend_dim),
+                dtype=cfg.torch_dtype, device="meta")
+    else:
+        out["token"] = tok(1)
+        out["cache"] = make_cache(cfg, b, s, device="meta")
+    return out

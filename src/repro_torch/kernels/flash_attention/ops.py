@@ -42,7 +42,7 @@ head against a cache, memory-bound.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -109,6 +109,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool = True, window: Optional[int] = None,
+                 scale: Optional[float] = None, q_offset: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` as one operator of torch's dispatcher
+    (``torch.ops.repro_torch.flash_attention_fwd``), so that a dispatch
+    mode sees the kernel as one op; on meta tensors only its outputs'
+    shapes are made."""
+    return flash_attention_fwd(q, k, v, causal, window, scale, q_offset)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_shapes(q, k, v, causal=True, window=None, scale=None,
+                      q_offset=0):
+    b, hq, sq, _ = q.shape
+    return (q.new_empty((b, hq, sq, v.shape[3])),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset, fwd):
@@ -132,12 +152,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     use_kernel: bool = True,
                     fwd: Optional[Callable] = None) -> torch.Tensor:
     """q (B, Hq, Sq, Dqk), k (B, Hkv, Skv, Dqk), v (B, Hkv, Skv, Dv) ->
-    (B, Hq, Sq, Dv), differentiable in q, k and v. `use_kernel=False`
-    takes the plain forward on every device; `fwd`, a function of
-    `flash_attention_fwd`'s signature, stands in for either (the
-    backward stays the plain pair schedule)."""
+    (B, Hq, Sq, Dv), differentiable in q, k and v. The forward is
+    `flash_fwd_op`; `use_kernel=False` takes the plain forward on every
+    device; `fwd`, a function of `flash_attention_fwd`'s signature,
+    stands in for either (the backward stays the plain pair schedule)."""
     if fwd is None:
-        fwd = flash_attention_fwd if use_kernel else pair_fwd
+        fwd = flash_fwd_op if use_kernel else pair_fwd
     return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset,
                                  fwd)
 

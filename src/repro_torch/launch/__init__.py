@@ -1,2 +1,3 @@
-"""The port's training entry points (`train`) and train step
-(`steps`)."""
+"""The port's entry points: training (`train`), serving (`serve`), the
+step builders (`steps`), process groups and meshes (`mesh`) and the
+sharding plan's dry run (`dryrun`)."""

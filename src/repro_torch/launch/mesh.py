@@ -12,8 +12,10 @@ one process a rank. Three ways in:
     and returns every rank's result (the tests and ``chip_smoke.py``);
   * a group the caller already has: ``make_engine(..., mesh=group)``.
 
-A mesh of named axes over the ranks (the reference's ``jax.make_mesh``
-for one program) is `make_process_mesh`: ``make_process_mesh((2, 2),
+The sharding plan's meshes (`distributed.sharding`) are DTensor
+`DeviceMesh`es: `make_production_mesh` (16 x 16, or 2 x 16 x 16) and
+`make_mesh`. A mesh of named axes as process groups (the reference's
+``jax.make_mesh`` for one program) is `make_process_mesh`: ``make_process_mesh((2, 2),
 ("data", "model"))`` on every rank of a 4-rank group gives each rank its
 coordinates and the groups of its row and column.
 
@@ -42,6 +44,28 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+
+
+def make_mesh(dp: int, tp: int, pods: int = 1):
+    """A `DeviceMesh` over every rank of the default group: (data, model)
+    = (dp, tp), or (pod, data, model) = (pods, dp, tp) with pods > 1 (the
+    reference's `make_mesh`; ranks laid out row-major, the last axis
+    fastest). On the group initialised already: NCCL's ranks on CUDA,
+    any other backend's (gloo, the dry run's fake group) on the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = ((pods, dp, tp), ("pod", "data", "model")) if pods > 1 \
+        else ((dp, tp), ("data", "model"))
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """The reference's production meshes: 16 x 16 = 256 ranks (data,
+    model); with `multi_pod`, two of them, (pod, data, model) = (2, 16,
+    16) = 512 ranks. Needs a default group of that many ranks (the dry
+    run's fake one)."""
+    return make_mesh(16, 16, 2 if multi_pod else 1)
 
 
 def make_engine_group(n_shards: int = 0):

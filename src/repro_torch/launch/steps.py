@@ -1,5 +1,11 @@
 """Step builders (those of `repro.launch.steps`): the train step used by
-`launch.train`, and the serving steps, prefill and cached decode."""
+`launch.train`, and the serving steps, prefill and cached decode.
+
+Each step runs as well on parameters, optimizer state and inputs placed
+as DTensors by the sharding plan (`distributed.sharding.distribute`):
+the model's DTensor paths (`models.plan`) and the ZeRO-1 update
+(`optim.adamw.apply_update`) take over there, and plain tensors met
+along the way count as replicated (`plan.mesh_context`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import plan
 from repro_torch.models.model import decode_step, forward, lm_loss
 from repro_torch.optim import schedules
 from repro_torch.optim.adamw import AdamWConfig, apply_update
@@ -24,6 +31,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
     sched = schedules.get(schedule)
 
     def train_step(params, opt_state, tokens, targets, frontend_embeds=None):
+        with plan.mesh_context(params["embed"]):
+            return step(params, opt_state, tokens, targets, frontend_embeds)
+
+    def step(params, opt_state, tokens, targets, frontend_embeds):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss = lm_loss(live, cfg, tokens, targets, frontend_embeds)
@@ -42,7 +53,10 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
 
 
 def _on(params, tokens) -> torch.Tensor:
-    """`tokens` (a tensor or an array) on the device of `params`."""
+    """`tokens` (a tensor or an array) on the device of `params` (a
+    DTensor as it is)."""
+    if plan.is_dtensor(tokens):
+        return tokens
     return torch.as_tensor(tokens, device=params["embed"].device)
 
 
@@ -58,10 +72,12 @@ def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
         tokens = _on(params, tokens)
         if frontend_embeds is not None:
             frontend_embeds = _on(params, frontend_embeds)
-        if cache_len is None:
-            return forward(params, cfg, tokens, frontend_embeds, mode="train")
-        return forward(params, cfg, tokens, frontend_embeds, mode="prefill",
-                       cache_len=cache_len)
+        with plan.mesh_context(params["embed"]):
+            if cache_len is None:
+                return forward(params, cfg, tokens, frontend_embeds,
+                               mode="train")
+            return forward(params, cfg, tokens, frontend_embeds,
+                           mode="prefill", cache_len=cache_len)
 
     return prefill
 
@@ -73,6 +89,7 @@ def make_decode_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def serve_step(params, token, cache):
-        return decode_step(params, cfg, _on(params, token), cache)
+        with plan.mesh_context(params["embed"]):
+            return decode_step(params, cfg, _on(params, token), cache)
 
     return serve_step

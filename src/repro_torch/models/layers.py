@@ -52,6 +52,7 @@ from repro_torch.kernels.flash_attention import (cache_attention,
                                                  decode_attention,
                                                  flash_attention)
 from repro_torch.kernels.rglru import linear_scan, rglru_gates
+from repro_torch.models import plan
 
 Params = Dict[str, Any]
 F32 = torch.float32
@@ -62,10 +63,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+class MetaGenerator:
+    """`init_params`' generator on the meta device: it draws nothing, so
+    every parameter is an empty meta tensor of its shape and dtype."""
+
+    device = torch.device("meta")
+
+
+def _draws(gen):
+    """The generator to pass to a draw (none on the meta device)."""
+    return None if isinstance(gen, MetaGenerator) else gen
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """N(0, scale^2) drawn in float32 from `gen` (on its device)."""
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale
-            ).to(dtype)
+    return (torch.randn(shape, generator=_draws(gen), device=gen.device)
+            * scale).to(dtype)
 
 
 # -- norms ---------------------------------------------------------------
@@ -150,6 +163,40 @@ def _proj(x, w, b=None):
     return y + b.to(y.dtype) if b is not None else y
 
 
+def _heads(y: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """(B, S, h * dh) -> (B, h, S, dh). Under the sharding plan, columns
+    split over the TP axis across heads' edges are gathered first
+    (`plan.whole_heads`)."""
+    if plan.is_dtensor(y):
+        y = plan.whole_heads(y, h)
+    b, s = y.shape[:2]
+    return y.reshape(b, s, h, dh).transpose(1, 2)
+
+
+def _merge_heads(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, h, S, dh) -> (B, S, h * dh), the input of the output
+    projection `wo`. Under the sharding plan the gradient coming back is
+    first placed as the forward's output (`plan.grad_placed`): the output
+    projection's backward hands it over split across heads' edges, which
+    the view's backward cannot take; and y is split as wo's rows
+    (`plan.rows_of`)."""
+    b, h, s, dh = o.shape
+    y = o.transpose(1, 2).reshape(b, s, h * dh)
+    if not plan.is_dtensor(y):
+        return y
+    return plan.rows_of(plan.grad_placed(y), wo)
+
+
+def _attend(q, k, v, causal: bool, window: Optional[int],
+            scale: Optional[float], use_kernel: bool, attend=None):
+    """`flash_attention` over a sequence; on DTensors (the sharding
+    plan), on each rank's own heads (`plan.flash`)."""
+    if plan.is_dtensor(q):
+        return plan.flash(q, k, v, causal, window, scale, use_kernel, attend)
+    return flash_attention(q, k, v, causal, window, scale, 0, use_kernel,
+                           attend)
+
+
 def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               cache: Optional[Params] = None,
@@ -171,9 +218,9 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, hq, dh).transpose(1, 2)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(b, s, hkv, dh).transpose(1, 2)
+    q = _heads(_proj(x, p["wq"], p.get("bq")), hq, dh)
+    k = _heads(_proj(x, p["wk"], p.get("bk")), hkv, dh)
+    v = _heads(_proj(x, p["wv"], p.get("bv")), hkv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"]["w"])
         k = rms_norm(k, p["knorm"]["w"])
@@ -182,8 +229,7 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         k = rope(k, positions, cfg.rope_theta)
     scale = cfg.attn_scale if cfg.attn_scale else dh ** -0.5
     if cache is None:
-        o = flash_attention(q, k, v, causal, window, scale, 0, cfg.use_kernels,
-                            attend)
+        o = _attend(q, k, v, causal, window, scale, cfg.use_kernels, attend)
         kv = {"k": k, "v": v}
     else:
         if s != 1:
@@ -191,18 +237,22 @@ def attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                              f"got {s}")
         kc, vc = cache["k"], cache["v"]
         ln = kc.shape[2]
-        slot = torch.remainder(cache_pos, ln).reshape(1).long()
-        kc.index_copy_(2, slot, k)
-        vc.index_copy_(2, slot, v)
-        if window is not None and ln == window:
-            slots = torch.arange(ln, device=kc.device)
-            valid = cache_pos - torch.remainder(cache_pos - slots, ln) >= 0
-            o = cache_attention(q, kc, vc, valid.expand(b, ln), scale)
+        if plan.is_dtensor(kc):  # a cache split by the sharding plan
+            o = plan.decode_attend(q, k, v, cache, cache_pos, window, scale)
         else:
-            length = (cache_pos + 1).to(torch.int32).expand(b)
-            o = decode_attention(q, kc, vc, length, window, scale)
+            slot = torch.remainder(cache_pos, ln).reshape(1).long()
+            kc.index_copy_(2, slot, k)
+            vc.index_copy_(2, slot, v)
+            if window is not None and ln == window:
+                slots = torch.arange(ln, device=kc.device)
+                valid = cache_pos - torch.remainder(cache_pos - slots,
+                                                    ln) >= 0
+                o = cache_attention(q, kc, vc, valid.expand(b, ln), scale)
+            else:
+                length = (cache_pos + 1).to(torch.int32).expand(b)
+                o = decode_attention(q, kc, vc, length, window, scale)
         kv = cache
-    y = o.transpose(1, 2).reshape(b, s, hq * dh)
+    y = _merge_heads(o, p["wo"])
     return _proj(y, p["wo"], p.get("bo")), kv
 
 
@@ -236,23 +286,21 @@ def cross_attention(p: Params, x: torch.Tensor,
     ``tanh(gate_attn)``, the gate in float32."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = matmul(x, p["wq"]).reshape(b, s, hq, dh).transpose(1, 2)
+    q = _heads(matmul(x, p["wq"]), hq, dh)
     if cache is None:
         if memory is None:
             raise ValueError("cross-attention needs a memory (frontend "
                              "embeddings) or a cache")
-        m = memory.shape[1]
-        cache = {n: matmul(memory, p[w]).reshape(b, m, hkv, dh)
-                 .transpose(1, 2).contiguous()
+        cache = {n: _heads(matmul(memory, p[w]), hkv, dh).contiguous()
                  for n, w in (("k", "wk"), ("v", "wv"))}
     q = rms_norm(q, p["qnorm"]["w"])
     k = rms_norm(cache["k"], p["knorm"]["w"])
     if s == 1:
         o = decode_attention(q, k, cache["v"])
     else:
-        o = flash_attention(q, k, cache["v"], False, None, None, 0,
-                            cfg.use_kernels, attend)
-    y = matmul(o.transpose(1, 2).reshape(b, s, hq * dh), p["wo"])
+        o = _attend(q, k, cache["v"], False, None, None, cfg.use_kernels,
+                    attend)
+    y = matmul(_merge_heads(o, p["wo"]), p["wo"])
     if gated:
         y = torch.tanh(p["gate_attn"].float()).to(y.dtype) * y
     return y, cache
@@ -335,8 +383,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         v = heads(wkv_b[..., nope:], vdim)
         kk = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, rdim)], -1)
         qq = torch.cat([q_nope, q_rope], -1)
-        o = flash_attention(qq, kk, v, True, None, scale, 0, cfg.use_kernels,
-                            attend)
+        o = _attend(qq, kk, v, True, None, scale, cfg.use_kernels, attend)
         kv = {"ckv": ckv, "krope": k_rope}
     else:
         if s != 1:
@@ -350,7 +397,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         o = mla_cache_attention(q_nope, q_rope, cache["ckv"], cache["krope"],
                                 wkv_b, valid, scale).to(x.dtype)
         kv = cache
-    y = o.transpose(1, 2).reshape(b, s, h * vdim)
+    y = _merge_heads(o, p["wo"])
     return matmul(y, p["wo"]), kv
 
 
@@ -397,7 +444,7 @@ def init_moe(gen, cfg, dtype) -> Params:
         # drawn one expert at a time: a whole stack drawn in float32
         # would be another copy of it
         w = torch.empty((e, rows, cols), dtype=dtype, device=gen.device)
-        for i in range(e):
+        for i in range(0 if isinstance(gen, MetaGenerator) else e):
             w[i] = _normal(gen, (rows, cols), scale, dtype)
         return w
 
@@ -567,7 +614,8 @@ def init_rglru_block(gen, cfg, dtype) -> Params:
     bw = w // nb
     s = d ** -0.5
     # Lambda init so a in (0.9, 0.999): sigmoid^-1 over that range
-    lam = 2.2 + 4.7 * torch.rand((w,), generator=gen, device=gen.device)
+    lam = 2.2 + 4.7 * torch.rand((w,), generator=_draws(gen),
+                                 device=gen.device)
     return {
         "w_x": _normal(gen, (d, w), s, dtype),
         "w_gate": _normal(gen, (d, w), s, dtype),

@@ -57,10 +57,11 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import (SavedFlash,
-                                                 flash_attention_fwd,
-                                                 pair_fwd)
+from repro_torch.kernels.flash_attention import SavedFlash, pair_fwd
+from repro_torch.kernels.flash_attention.ops import flash_fwd_op
+from repro_torch.distributed.sp import seq_constraint
 from repro_torch.models import layers as L
+from repro_torch.models import plan
 
 Params = Dict[str, Any]
 F32 = torch.float32
@@ -122,7 +123,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     on `device` (their values are not the reference's: the tests convert
     the reference's init with `convert.params_from_jax`)."""
     _check_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.MetaGenerator() if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     dtype = cfg.torch_dtype
     d = cfg.d_model
     segments = lambda layout: [
@@ -148,6 +150,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                     "norm_h": norm(), "norm_e": norm(),
                     "block": _init_block(gen, cfg.pattern[-1], cfg, dtype)}
     return p
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as meta tensors: shapes and dtypes, nothing
+    allocated (the dry run's; the reference's ``jax.eval_shape`` of its
+    init)."""
+    return init_params(cfg, device="meta")
 
 
 # -- caches ------------------------------------------------------------------
@@ -297,7 +306,7 @@ def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
         y, new_cache = _mixer(bd, p, h, cfg, positions, cache, cache_pos,
                               prefill_len, attend)
         if bd.mixer == "dec":  # then cross-attention, its own residual
-            x = x + y
+            x = plan.residual(x, y)
             h = L.apply_norm(x, p["norm_cross"], cfg.norm)
             xc = None if cache is None else {"k": cache["xk"],
                                              "v": cache["xv"]}
@@ -316,14 +325,14 @@ def _apply_block(bd: BlockDef, p: Params, x: torch.Tensor, cfg: ModelConfig,
                  "slstm": L.slstm_block}[bd.mixer]
         y, new_cache = block(p["mixer"], h, cfg, cache,
                              return_state=prefill_len is not None)
-    x = x + y
+    x = plan.residual(x, y)
     if bd.ffn == "none":
         return x, new_cache
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     f = _ffn(bd, p, h, cfg, parts)
     if parts is not None:
         parts.update(mixer=y, ffn_in=h, ffn=f)
-    return x + f, new_cache
+    return plan.residual(x, f), new_cache
 
 
 def _run_segments(params_segs: List, segs, x: torch.Tensor,
@@ -356,12 +365,23 @@ def _run_segments(params_segs: List, segs, x: torch.Tensor,
                 continue
             new_per = []
             for bd, pp, cc in zip(pat, period, cper):
+                x = _seq_shard(x, cfg)
                 x, c = _apply_block(bd, pp, x, cfg, positions, cc, cache_pos,
                                     prefill_len, memory=memory)
                 new_per.append(c)
             new_seg.append(tuple(new_per))
         out.append(new_seg)
     return x, (out if want else None)
+
+
+def _seq_shard(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Before a block: the residual stream split over the TP axis along
+    the sequence (`distributed.sp`) when ``cfg.seq_shard``, as the
+    reference's ``seq_constraint`` (src/repro/models/model.py:367); else,
+    under the sharding plan, whole over it (`plan.stream`)."""
+    if cfg.seq_shard and x.shape[1] > 1:
+        return seq_constraint(x)
+    return plan.stream(x)
 
 
 def _remat_period(pat, period, x: torch.Tensor, cfg: ModelConfig,
@@ -371,13 +391,14 @@ def _remat_period(pat, period, x: torch.Tensor, cfg: ModelConfig,
     kw = {"memory": memory}
     context_fn = torch.utils.checkpoint.noop_context_fn
     if cfg.remat == "block_save_flash":
-        kw["attend"] = SavedFlash(flash_attention_fwd if cfg.use_kernels
+        kw["attend"] = SavedFlash(flash_fwd_op if cfg.use_kernels
                                   else pair_fwd)
         context_fn = kw["attend"].contexts
 
     def run(x):
         for bd, pp in zip(pat, period):
-            x, _ = _apply_block(bd, pp, x, cfg, positions, **kw)
+            x, _ = _apply_block(bd, pp, _seq_shard(x, cfg), cfg, positions,
+                                **kw)
         return x
 
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
@@ -408,7 +429,11 @@ def _with_positions(x: torch.Tensor, cfg: ModelConfig,
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor):
-    x = params["embed"][tokens.long()] * (cfg.emb_scale or 1.0)
+    table = params["embed"]
+    if plan.is_dtensor(table):  # vocab-parallel under the sharding plan
+        x = plan.vocab_embed(table, tokens) * (cfg.emb_scale or 1.0)
+    else:
+        x = table[tokens.long()] * (cfg.emb_scale or 1.0)
     return _with_positions(x.to(cfg.torch_dtype), cfg, positions)
 
 
@@ -443,7 +468,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """float32 logits: the head's product (the untied ``lm_head``, else
     the embedding's transpose) accumulates and stays in float32 (the
     reference's ``preferred_element_type=float32``)."""
-    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    x = L.apply_norm(plan.stream(x), params["final_norm"], cfg.norm)
     head = params.get("lm_head")
     head = params["embed"].T if head is None else head
     logits = torch.matmul(x.float(), head.float())
@@ -513,6 +538,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor, z_loss: float):
+    if plan.is_dtensor(logits):  # vocab-sharded logits
+        return plan.vocab_ce(logits, targets, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.clamp(targets.long(), min=0)
